@@ -1,0 +1,31 @@
+"""audio_inpainting_torch — the PyTorch/CUDA port of audio_inpainting_tpu.
+
+It grows slice by slice beside the JAX package, which stays the reference.
+It imports torch and numpy and nothing of JAX. Layering, as in the JAX
+package:
+  io/        L0  WAV read/write, normalization, PNG rendering
+  ops/       L1  STFT/iSTFT (torch.stft), the AR recurrence kernel wrapper
+  corrupt/   L2  mask generators + blind damage detectors
+  methods/   L3  linear and AR restoration; the uniform ``restore`` API
+  metrics/   L4  SNR / local SNR / LSD
+  pipelines/ L6  Part 0 / Part 2 scenario pipelines, the demo_assets contract
+  cli/           the ``restore`` command
+  csrc/          CUDA C++ kernels for Hopper (sm_90a); kernels/ builds them
+
+Entry points run on the GPU unless called with device="cpu".
+
+Float32 matrix products run in full fp32: TF32 is turned off here, once,
+for cuBLAS and cuDNN, matching the JAX package's Precision.HIGH on the
+Ridge fit and the STFT.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from .api import restore  # noqa: E402  (uniform L3 contract)
+
+__all__ = ["restore"]

@@ -1,0 +1,82 @@
+"""Uniform restoration API: ``restore(damaged, sr, method) -> restored``.
+
+    from audio_inpainting_torch import restore
+    fixed = restore(damaged, sr, method="ar")                  # on the GPU
+    fixed = restore(damaged, sr, method="ar", device="cpu")
+
+The port's counterpart of audio_inpainting_tpu/api.py. This slice carries
+the linear and ar methods; the others raise NotImplementedError naming the
+ROADMAP.md item that ports them. Blind damage detection (threshold scans)
+runs when ``gaps`` / ``mask`` are not supplied.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+# The facade's AR posture: the reference's multi-gap texture setup
+# (main3_AR_text_mask.py — order 30, Ridge alpha 0.5, 1000-sample contexts,
+# progressive context reuse ~ passes=2).
+AR_DEFAULTS = {"order": 30, "alpha": 0.5, "texture": True,
+               "context_len": 1000, "passes": 2}
+
+# methods of the JAX facade that later slices port (ROADMAP.md, Queue 1)
+_NOT_PORTED = {"nmf": 9, "gp": 11, "unet": 12, "gan": 13, "diffusion": 14}
+
+
+def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
+            threshold: float = 1e-4, seed: int = 0, device=None,
+            **cfg_kwargs) -> np.ndarray:
+    """Restore a damaged mono float32 signal in [-1, 1]. Returns same length.
+
+    gaps: optional [(start, end)] damaged spans; detected by threshold scan
+    when omitted. mask: optional bool array (True = valid sample),
+    alternative to gaps for linear. device: where the work runs, cuda by
+    default; RuntimeError when no GPU is present and none is named.
+    Returns float32 numpy on the host.
+    """
+    from .corrupt import find_gaps
+
+    dev = resolve_device(device)
+    damaged = np.asarray(damaged, np.float32)
+    n = len(damaged)
+
+    def _mask():
+        if mask is not None:
+            return np.asarray(mask, bool)
+        if gaps is not None:
+            # explicit damage spans beat the threshold scan: naturally quiet
+            # passages stay untouched
+            m = np.ones(n, bool)
+            for s, e in gaps:
+                m[max(0, int(s)):min(n, int(e))] = False
+            return m
+        return np.abs(damaged) > threshold
+
+    def _gaps():
+        if gaps is not None:
+            return [(int(s), int(e)) for s, e in gaps]
+        return find_gaps(damaged, threshold=max(threshold, 0.01), min_len=100)
+
+    if method == "linear":
+        # host np.interp: a zero-FLOP O(n) fill gains nothing on the GPU
+        from .methods.linear import linear_interp_masked_host
+
+        return linear_interp_masked_host(damaged, _mask())
+
+    if method == "ar":
+        from .methods.ar import ARConfig, ar_restore_gaps
+
+        cfg = ARConfig(**{**AR_DEFAULTS, **cfg_kwargs})
+        out = ar_restore_gaps(torch.tensor(damaged, device=dev), _gaps(), cfg,
+                              seed)
+        return out.cpu().numpy()
+
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"method {method!r} is not ported to PyTorch yet "
+            f"(ROADMAP.md, Queue 1 item {_NOT_PORTED[method]})")
+    raise ValueError(f"unknown method {method!r}")

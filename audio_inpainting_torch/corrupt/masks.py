@@ -1,0 +1,64 @@
+"""L2 corruption: seeded mask generators matching the reference distributions.
+
+Every random generator takes an explicit ``torch.Generator`` and draws on
+its device. Its stream is not ``jax.random``'s, so a mask matches the JAX
+package's by contract (gap count, length range, start range), not sample
+by sample.
+
+Mask convention throughout: True/1 = sample kept, False/0 = lost.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _stamp_intervals(starts: torch.Tensor, ends: torch.Tensor, n: int) -> torch.Tensor:
+    """Rasterize the union of [start, end) intervals into a bool[n] via a
+    +1/-1 scatter and a cumsum."""
+    delta = torch.zeros(n + 1, dtype=torch.int32, device=starts.device)
+    ones = torch.ones_like(starts, dtype=torch.int32)
+    delta.index_add_(0, starts, ones).index_add_(0, ends, -ones)
+    return torch.cumsum(delta[:-1], 0) > 0
+
+
+def random_dropout_mask(generator: torch.Generator, n_samples: int,
+                        mask_ratio: float = 0.25, min_gap_len: int = 50,
+                        max_gap_len: int = 400) -> torch.Tensor:
+    """Random short time-domain dropouts (Part 1 corruption), on the
+    generator's device.
+
+    Distribution matches reference generate_part1_data.py:26-35:
+    num_gaps = n*ratio/max_len*2 gaps, each of uniform length in
+    [min_gap_len, max_gap_len) at a uniform start in [0, n - length).
+    """
+    num_gaps = int(n_samples * mask_ratio / max_gap_len * 2)
+    dev = generator.device
+    lens = torch.randint(min_gap_len, max_gap_len, (num_gaps,),
+                         generator=generator, device=dev)
+    u = torch.rand(num_gaps, generator=generator, device=dev,
+                   dtype=torch.float64)
+    starts = (u * (n_samples - lens)).long()
+    return ~_stamp_intervals(starts, starts + lens, n_samples)
+
+
+def contiguous_gap_mask(n_samples: int, gap_ratio: float = 0.2,
+                        start_frac: float = 0.4) -> tuple[np.ndarray, tuple[int, int]]:
+    """Deterministic contiguous gap at 40% of the segment (Part 0).
+
+    Matches reference main1_gp.py:61-71 / main2_AR.py:51-58. Returns
+    (bool mask, (gap_start, gap_end)).
+    """
+    gap_len = int(n_samples * gap_ratio)
+    start = int(n_samples * start_frac)
+    mask = np.ones(n_samples, dtype=bool)
+    mask[start : start + gap_len] = False
+    return mask, (start, start + gap_len)
+
+
+def center_gap_bounds(n_samples: int, sr: int, half_seconds: float = 1.0) -> tuple[int, int]:
+    """The Part-2 centered 2-second hole (reference generate_part2_data.py:36-41)."""
+    center = n_samples // 2
+    half = int(half_seconds * sr)
+    return center - half, center + half

@@ -1,0 +1,13 @@
+from .wav import (read_wav, write_wav, to_float_mono, peak_normalize,
+                  load_mono_normalized, save_wav_int16)
+from .render import save_spectrogram_png
+
+__all__ = [
+    "read_wav",
+    "write_wav",
+    "to_float_mono",
+    "peak_normalize",
+    "load_mono_normalized",
+    "save_wav_int16",
+    "save_spectrogram_png",
+]

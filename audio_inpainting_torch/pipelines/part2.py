@@ -1,0 +1,87 @@
+"""Part 2: one 2-second hole in the middle of the 10 s clip.
+
+The port's slice of audio_inpainting_tpu/pipelines/part2.py: the corruption,
+the linear leg and the AR leg (reference generate_part2_data.py,
+main3_AR_text_gap.py). NMF, GAN and diffusion legs wait for later slices
+(ROADMAP.md, Queue 1).
+
+1. corrupt: zero the centered 2 s window; write damaged + linear baseline +
+   original.
+2. AR: reload the damaged clip through the int16 chain, blind-detect the
+   hole as the longest silent run (the reference's first-to-last-silent
+   detector spans nearly the whole clip on real music), and fill it with
+   order-100 texture AR over 5000-sample contexts, chunked 128 samples
+   per step.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..corrupt import center_gap_bounds, find_gaps
+from ..device import resolve_device
+from ..io import load_mono_normalized
+from ..methods import ARConfig, ar_restore_gap, linear_fill_gap
+from ..metrics import local_snr_db, lsd_db, snr_db
+from .registry import asset_path, write_artifacts
+
+
+def _metrics(name, original, restored, gs, ge, t0, results, device):
+    results[name] = {
+        "snr_db": float(snr_db(original, restored, device)),
+        "local_snr_db": float(local_snr_db(original, restored, gs, ge, device)),
+        "lsd_db": float(lsd_db(original, restored, device=device)),
+        "wall_s": time.time() - t0,
+    }
+
+
+def detect_main_gap(damaged: np.ndarray, threshold: float = 1e-4,
+                    min_len: int = 1000) -> tuple[int, int] | None:
+    """Longest sub-threshold run — robust single-gap detection."""
+    gaps = find_gaps(damaged, threshold=threshold, min_len=min_len)
+    if not gaps:
+        return None
+    return max(gaps, key=lambda g: g[1] - g[0])
+
+
+def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
+              device=None) -> dict:
+    """Run the linear and AR legs on ``input_file``; write their artifacts
+    under ``assets_dir`` and return their metrics. Runs on ``device``
+    (cuda by default)."""
+    dev = resolve_device(device)
+    sr, data = load_mono_normalized(input_file)
+    n_target = 10 * sr
+    if len(data) > n_target:
+        data = data[:n_target]
+    n = len(data)
+    results: dict = {"sr": sr}
+
+    # --- 1. corruption + linear baseline ---------------------------------
+    gs, ge = center_gap_bounds(n, sr)
+    results["gap"] = (gs, ge)
+    corrupted = data.copy()
+    corrupted[gs:ge] = 0.0
+    write_artifacts(corrupted, sr, assets_dir, "part2", "damaged")
+    write_artifacts(data, sr, assets_dir, "part2", "original")
+    t0 = time.time()
+    lin = linear_fill_gap(data, gs, ge, device=dev).cpu().numpy()
+    _metrics("linear", data, lin, gs, ge, t0, results, dev)
+    write_artifacts(lin, sr, assets_dir, "part2", "linear")
+
+    # downstream methods reload through the int16 chain, like the reference
+    _, damaged = load_mono_normalized(asset_path(assets_dir, "part2", "damaged"))
+
+    # --- 2. AR order-100 with texture ------------------------------------
+    t0 = time.time()
+    gap = detect_main_gap(damaged) or (gs, ge)
+    results["detected_gap"] = gap
+    cfg = ARConfig(order=100, alpha=0.5, texture=True, context_len=5000,
+                   chunk=128)
+    ar = ar_restore_gap(damaged, gap, cfg, seed, device=dev).cpu().numpy()
+    ar = np.clip(ar, -1.0, 1.0)
+    _metrics("ar", data, ar, gs, ge, t0, results, dev)
+    write_artifacts(ar, sr, assets_dir, "part2", "ar")
+    return results

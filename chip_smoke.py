@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Smoke test of audio_inpainting_torch on one CUDA GPU (an H100 here).
+
+    python3 chip_smoke.py            # from the repository root
+
+It builds the port's CUDA kernel from csrc/, holds it against its plain
+torch version at the shapes the restore path gives it, times both, then
+drives the port's main path: the ``restore(..., method="ar")`` facade on a
+10 s, 44.1 kHz clip with Part-1-style dropouts, and the Part 2 / Part 0
+pipelines. Each phase prints one JSON line; any failed check raises. The
+last three lines are the kernel table, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, and prints no result, without a CUDA device or outside
+a checkout of the repository. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+SR = 44100
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_name_and_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, calls: int, rounds: int = 5, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn`` on the current stream: CUDA events
+    around ``calls`` back-to-back calls, the median of ``rounds`` rounds.
+    Back to back, the device queue stays ahead of the host, so the host's
+    per-call overhead is hidden where the device work takes longer."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """torch.profiler over one call of ``fn``: device busy time, the wall
+    time, and the ``top`` device entries by self time (kernels, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side entries only (kernels, copies): an operator's own entry
+    # would count its kernels' time a second time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "top": [{"name": e.key[:60], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in events[:top]]}
+
+
+def agreement_snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    ref, got = ref.double(), got.double()
+    err = float(((ref - got) ** 2).sum())
+    return float(10 * np.log10(float((ref ** 2).sum()) / max(err, 1e-300)))
+
+
+def bound_ms(B: int, p: int, steps: int) -> tuple[float, str]:
+    """Least time for the recurrence's work: FLOPs over the fp32 peak or
+    bytes (eps in, out, parameters) over HBM bandwidth, the larger."""
+    flops = 2.0 * B * p * steps
+    nbytes = 4.0 * B * steps * 2 + 4.0 * B * (2 * p + 3)
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def small_inputs(B, p, steps, dev):
+    """The inputs of tests/test_pallas_ar.py, made from a numpy seed."""
+    rng = np.random.RandomState(B + p)
+    arrays = [rng.randn(B, p) * 0.05, rng.randn(B) * 0.01,
+              np.abs(rng.randn(B)) * 0.1, (rng.rand(B) > 0.2) * 1.0,
+              rng.randn(B, p), rng.randn(B, steps)]
+    w, b, std, gain, state0, eps = (torch.as_tensor(a.astype(np.float32), device=dev)
+                                    for a in arrays)
+    return state0, w, b, std, gain, eps
+
+
+def fitted_inputs(n_gaps, p, context_len, steps, dev, seed):
+    """Recurrence inputs as the restore path makes them: Ridge fits on
+    contexts of a synthetic music clip, eps a seeded standard normal."""
+    from audio_inpainting_torch.corrupt import synth_music_clip
+    from audio_inpainting_torch.methods import ar
+
+    clip = torch.as_tensor(synth_music_clip(seed, SR, 10.0), device=dev)
+    n = clip.shape[0]
+    starts = torch.linspace(context_len, n - context_len - steps, n_gaps,
+                            device=dev).long()
+    cfg = ar.ARConfig(order=p, alpha=0.5, context_len=context_len)
+    ctxs, pads = ar._extract_contexts(clip, starts, starts + steps, context_len)
+    w, b, std, valid = ar._fit_ridge_batched(ctxs, pads, cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eps = torch.randn((steps, 2 * n_gaps), generator=gen, device=dev)
+    return ctxs, w, b, std, valid, eps
+
+
+def phase_env(dev):
+    from audio_inpainting_torch.kernels import build
+
+    t0 = time.perf_counter()
+    so = build.build("ar_scan")
+    build_s = time.perf_counter() - t0
+    log = so.with_suffix(".log").read_text().splitlines()
+    emit({"phase": "env", "gpu": gpu_name_and_power(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "device": torch.cuda.get_device_name(dev),
+          "kernel_build_s": build_s,
+          "ptxas": [line.strip() for line in log if "Used" in line]})
+
+
+def phase_kernel(dev):
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+
+    rows = []
+    for B, p, steps in [(5, 30, 300), (2, 100, 700), (9, 7, 129)]:
+        args = small_inputs(B, p, steps, dev)
+        got = ar_scan.ar_extrapolate(*args, steps)
+        torch.cuda.synchronize()
+        err = float((got - ar_scan.ar_extrapolate_ref(*args, steps)).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"kernel vs plain at {(B, p, steps)}: {err} > 1e-4")
+        rows.append({"B": B, "p": p, "steps": steps, "max_abs_err": err,
+                     "tolerance": "atol 1e-4"})
+
+    # the facade's shape (~736 rows of order 30, ~1024 steps) and Part 2's
+    # (2 rows of order 100, 88,200 steps), on fitted models
+    for n_gaps, p, context_len, steps, plain_reps in [(368, 30, 1000, 1024, 10),
+                                                      (1, 100, 5000, 88200, 1)]:
+        ctxs, w, b, std, valid, eps_tb = fitted_inputs(n_gaps, p, context_len,
+                                                       steps, dev, seed=0)
+        B = 2 * n_gaps
+        state0 = ar._state0(ctxs, p).contiguous()
+        gain = valid.to(torch.float32)
+        eps = eps_tb.T.contiguous()
+        args = (state0, w, b, std, gain, eps, steps)
+        got = ar_scan.ar_extrapolate(*args)
+        torch.cuda.synchronize()
+        plain_times = []
+        for _ in range(plain_reps):
+            t0 = time.perf_counter()
+            ref = ar_scan.ar_extrapolate_ref(*args)
+            torch.cuda.synchronize()
+            plain_times.append((time.perf_counter() - t0) * 1e3)
+        snr = agreement_snr_db(ref, got)
+        if not snr >= 60.0:
+            raise AssertionError(f"kernel vs plain at {(B, p, steps)}: "
+                                 f"agreement {snr} dB < 60 dB")
+        chunked = ar._extrapolate_chunked(ctxs, w, b, std, valid, eps_tb, steps, 128)
+        torch.cuda.synchronize()
+        bms, bound_by = bound_ms(B, p, steps)
+        rows.append({
+            "B": B, "p": p, "steps": steps, "tolerance": "agreement SNR >= 60 dB",
+            "agreement_snr_db": snr,
+            "max_abs_err": float((got - ref).abs().max()),
+            "chunked_agreement_snr_db": agreement_snr_db(ref, chunked),
+            "ms": cuda_ms(lambda: ar_scan.ar_extrapolate(*args), calls=10),
+            "plain_ms": float(np.median(plain_times)), "plain_runs": plain_reps,
+            "chunked_ms": cuda_ms(lambda: ar._extrapolate_chunked(
+                ctxs, w, b, std, valid, eps_tb, steps, 128), calls=2),
+            "bound_ms": bms, "bound_by": bound_by})
+    emit({"phase": "kernel", "shapes": rows})
+    return rows
+
+
+def damaged_clip(tmp: Path):
+    """A 10 s synthetic clip with Part-1-style dropouts (ratio 0.25,
+    50-400 samples), through the int16 WAV chain."""
+    from audio_inpainting_torch.corrupt import random_dropout_mask, synth_music_clip
+    from audio_inpainting_torch.io import load_mono_normalized, save_wav_int16
+
+    clean = synth_music_clip(0, SR, 10.0)
+    mask = random_dropout_mask(torch.Generator().manual_seed(0), len(clean),
+                               0.25, 50, 400).numpy()
+    path = str(tmp / "damaged.wav")
+    save_wav_int16(clean * mask, SR, path)
+    return clean, load_mono_normalized(path)[1]
+
+
+def phase_facade(dev, tmp: Path):
+    from audio_inpainting_torch import restore
+    from audio_inpainting_torch.corrupt import find_gaps
+    from audio_inpainting_torch.metrics import lsd_db, snr_db
+    from audio_inpainting_torch.ops import ar_scan
+
+    clean, damaged = damaged_clip(tmp)
+    gaps = find_gaps(damaged, 0.01, 100)
+    t0 = time.perf_counter()
+    restore(damaged, SR, method="ar")                        # cold
+    cold_s = time.perf_counter() - t0
+
+    ar_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = restore(damaged, SR, method="ar")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ar_scan.LAUNCHES
+
+    if launches != 2:
+        raise AssertionError(f"facade launched the kernel {launches} times, not 2")
+    if out.shape != damaged.shape or not np.isfinite(out).all():
+        raise AssertionError("facade output has the wrong shape or is not finite")
+    outside = np.ones(len(damaged), bool)
+    for s, e in gaps:
+        outside[s:e] = False
+    if not np.array_equal(out[outside], damaged[outside]):
+        raise AssertionError("facade changed samples outside the detected gaps")
+
+    profiled = device_profile(lambda: restore(damaged, SR, method="ar"))
+
+    # the same facade without texture, on the GPU and on the CPU (plain loop)
+    gpu = restore(damaged, SR, method="ar", texture=False)
+    cpu = restore(damaged, SR, method="ar", texture=False, device="cpu")
+    cpu_snr = agreement_snr_db(torch.as_tensor(cpu[~outside]),
+                               torch.as_tensor(gpu[~outside]))
+    if not cpu_snr >= 60.0:
+        raise AssertionError(f"GPU vs CPU facade: agreement {cpu_snr} dB < 60 dB")
+
+    emit({"phase": "facade", "samples": len(damaged), "gaps": len(gaps),
+          "B": 2 * len(gaps), "max_len": max(e - s for s, e in gaps),
+          "launches": launches, "cold_s": cold_s, "wall_s": wall_s,
+          "gpu_vs_cpu_agreement_snr_db": cpu_snr, "profile": profiled,
+          "damaged": {"snr_db": float(snr_db(clean, damaged)),
+                      "lsd_db": float(lsd_db(clean, damaged))},
+          "restored": {"snr_db": float(snr_db(clean, out)),
+                       "lsd_db": float(lsd_db(clean, out))}})
+    return launches
+
+
+def check_artifacts(assets: str, part: str, methods, sr: int):
+    from audio_inpainting_torch.io import read_wav
+    from audio_inpainting_torch.pipelines import asset_path
+
+    for m in methods:
+        wav_sr, data = read_wav(asset_path(assets, part, m))
+        if wav_sr != sr or data.dtype != np.int16 or not len(data):
+            raise AssertionError(f"{part}/{m}: bad WAV ({wav_sr} Hz, {data.dtype})")
+        with open(asset_path(assets, part, m, "image"), "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{part}/{m}: image is not a PNG")
+
+
+def phase_pipelines(dev, tmp: Path):
+    from audio_inpainting_torch.corrupt import synth_music_clip
+    from audio_inpainting_torch.io import save_wav_int16
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.pipelines import run_part0, run_part2
+
+    clip = str(tmp / "clip.wav")
+    save_wav_int16(synth_music_clip(1, SR, 10.0), SR, clip)
+    assets = str(tmp / "assets")
+
+    t0 = time.perf_counter()
+    run_part2(clip, assets, seed=0)                          # cold
+    cold_s = time.perf_counter() - t0
+    ar_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    part2 = run_part2(clip, assets, seed=0)
+    part2_s = time.perf_counter() - t0
+    part2_launches = ar_scan.LAUNCHES
+    check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar"], SR)
+
+    ar_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    part0 = run_part0(clip, assets, seed=0)
+    part0_s = time.perf_counter() - t0
+    part0_launches = ar_scan.LAUNCHES
+    if part0_launches != 6:   # the AR leg once, the texture leg five times
+        raise AssertionError(f"Part 0 launched the kernel {part0_launches} times, not 6")
+    check_artifacts(assets, "part0", ["ar", "ar_corrupted", "ar_original",
+                                      "ar_texture", "ar_texture_corrupted",
+                                      "ar_texture_original"], SR)
+    for name, res in (("part2", part2), ("part0", part0)):
+        for leg, vals in res.items():
+            if isinstance(vals, dict) and not all(
+                    np.isfinite(v) for k, v in vals.items() if k.endswith("db")):
+                raise AssertionError(f"{name}/{leg}: metric not finite: {vals}")
+    emit({"phase": "pipelines",
+          "part2": {**part2, "cold_s": cold_s, "wall_s": part2_s,
+                    "launches": part2_launches},
+          "part0": {**part0, "wall_s": part0_s, "launches": part0_launches}})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    phase_env(dev)
+    rows = phase_kernel(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_facade(dev, Path(tmp))
+        phase_pipelines(dev, Path(tmp))
+    facade = rows[3]
+    emit({"kernels": [{
+        "name": "ar_scan", "route": "cuda",
+        "source": "audio_inpainting_torch/csrc/ar_scan.cu",
+        "replaces": "audio_inpainting_tpu/ops/pallas/ar_scan.py:39",
+        "launches": launches, "max_abs_err": facade["max_abs_err"],
+        "ms": facade["ms"], "plain_ms": facade["plain_ms"],
+        "bound_ms": facade["bound_ms"], "bound_by": facade["bound_by"],
+        "library_ms": None, "chunked_ms": facade["chunked_ms"],
+        "shape": [facade["B"], facade["p"], facade["steps"]]}]})
+    print(gpu_name_and_power(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -154,6 +154,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: training-loop / SPMD-compile heavy (>= ~30 s on "
         "the 1-core reference box); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "requires_cuda: runs a CUDA kernel of audio_inpainting_torch; "
+        "skips where no GPU is present")
 
 
 def pytest_collection_modifyitems(config, items):
