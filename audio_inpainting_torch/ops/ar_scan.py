@@ -1,4 +1,4 @@
-"""The AR recurrence: the hand-written CUDA kernel and its plain version.
+"""The AR recurrence: the hand-written CUDA kernel and its plain versions.
 
     pred_t = ((<state_t, w> + b) + noise_std * eps_t) * gain
     state_{t+1} = state_t shifted left one sample, pred_t appended
@@ -6,9 +6,13 @@
 ``ar_extrapolate`` mirrors ``ar_extrapolate_pallas`` of the JAX package
 (audio_inpainting_tpu/ops/pallas/ar_scan.py). On a CUDA tensor it launches
 ``csrc/ar_scan.cu`` (built at first use, see kernels/build.py) or raises;
-on a CPU tensor it runs ``ar_extrapolate_ref``, the plain torch loop. The
-kernel takes any order whose ring buffer fits in shared memory
-(``MAX_ORDER``); the JAX package's order <= 128 limit was the TPU's.
+on a CPU tensor it runs ``ar_extrapolate_ref``, the plain torch loop that
+defines the function. The kernel is a blocked scan: it advances each row
+one block of outputs per dependent update, by the algebra that
+``ar_extrapolate_blocked_ref`` writes in plain torch. It takes orders up
+to ``MAX_ORDER`` = 224, where its per-row state-response matrix still
+fits in shared memory, and raises above; the JAX package's order <= 128
+limit was the TPU's.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ from ..kernels import build
 # it, once per kernel launch; callers reset it to 0 to count a run.
 LAUNCHES = 0
 
-# One warp's ring buffer and w, 8 bytes per tap, within the 227 KB of
-# shared memory one block may take on sm_90.
-MAX_ORDER = 232448 // 8
+# The kernel keeps a (p, 32 * ceil(p / 32) + 1) float32 matrix per row in
+# shared memory; at p = 224 that and its buffers take 210 KB of the 227 KB
+# one block may have on sm_90, at p = 225 they would take 244 KB.
+MAX_ORDER = 224
 
 
 def ar_extrapolate_ref(state0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -42,6 +47,53 @@ def ar_extrapolate_ref(state0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         state = torch.cat([state[:, 1:], pred[:, None]], dim=1)
         preds.append(pred)
     return torch.stack(preds, dim=1)
+
+
+def ar_extrapolate_blocked_ref(state0: torch.Tensor, w: torch.Tensor,
+                               b: torch.Tensor, noise_std: torch.Tensor,
+                               gain: torch.Tensor, eps: torch.Tensor,
+                               steps: int, L: int) -> torch.Tensor:
+    """The recurrence in blocks of ``L`` outputs, the algebra of the CUDA
+    kernel in plain torch. Returns (B, steps); only tests use it.
+
+    With w' = gain * w and u_t = gain * (b + noise_std * eps_t), the
+    recurrence is y_t = <w', state_t> + u_t (the gained prediction is fed
+    back, as in the Pallas kernel). A block's outputs are then
+
+        y = G s + T(h) u
+
+    for the block's entry state s (p samples, oldest first): h is the
+    impulse response (h_0 = 1, h_n = sum_{i=1..min(n,p)} w'_{p-i} h_{n-i}),
+    T(h) its lower-triangular Toeplitz matrix, and G = T(h) D with
+    D[m, c] = w'_{c-m} for c >= m, the direct contribution of s_c to y_m.
+    The next entry state is the last p samples of [s; y], so any L >= 1
+    works here; the kernel uses L >= p.
+    """
+    B, p = w.shape
+    wp = gain[:, None] * w
+    u = gain[:, None] * (b[:, None] + noise_std[:, None] * eps[:, :steps])
+    h = torch.zeros((B, L), dtype=w.dtype, device=w.device)
+    h[:, 0] = 1.0
+    for n in range(1, L):
+        i = torch.arange(1, min(n, p) + 1, device=w.device)
+        h[:, n] = (wp[:, p - i] * h[:, n - i]).sum(1)
+    m = torch.arange(L, device=w.device)
+    lag = m[:, None] - m[None, :]                                # j - m
+    T = torch.where(lag >= 0, h[:, lag.clamp_min(0)], 0.0)       # (B, L, L)
+    c = torch.arange(p, device=w.device)
+    shift = c[None, :] - m[:, None]                              # c - m
+    D = torch.where(shift >= 0, wp[:, shift.clamp(0, p - 1)], 0.0)  # (B, L, p)
+    G = torch.bmm(T, D)                                          # (B, L, p)
+
+    nblocks = -(-steps // L)
+    u = torch.nn.functional.pad(u, (0, nblocks * L - steps))
+    s = state0
+    ys = []
+    for k in range(nblocks):
+        y = (torch.bmm(G, s[:, :, None]) + torch.bmm(T, u[:, k * L:(k + 1) * L, None]))[..., 0]
+        s = torch.cat([s, y], dim=1)[:, -p:]
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :steps]
 
 
 def _check(state0, w, b, noise_std, gain, eps, steps):
@@ -81,8 +133,7 @@ def ar_extrapolate(state0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ar_extrapolate runs on cpu or cuda, not {w.device}")
     B, p = w.shape
     if p > MAX_ORDER:
-        raise ValueError(f"order {p} exceeds the kernel's shared-memory limit "
-                         f"of {MAX_ORDER}")
+        raise ValueError(f"order {p} is above the kernel's limit of {MAX_ORDER}")
     args = [state0, w, b, noise_std, gain, eps]
     for i, t in enumerate(args):
         if not t.is_contiguous():

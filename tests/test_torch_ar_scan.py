@@ -1,6 +1,10 @@
 """The port's AR recurrence (audio_inpainting_torch/ops/ar_scan.py) against
-the JAX package: its plain loop against the Pallas kernel in interpret
-mode. The CUDA kernel's own tests are in test_torch_ar_scan_cuda.py."""
+the JAX package: its plain loop and the blocked form of the CUDA kernel
+against the Pallas kernel in interpret mode, and the blocked form against
+the plain loop. The CUDA kernel's own tests are in
+test_torch_ar_scan_cuda.py."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from audio_inpainting_torch.corrupt import synth_music_clip
+from audio_inpainting_torch.methods import ar as tar
 from audio_inpainting_torch.ops import ar_scan
 from audio_inpainting_tpu.methods.ar import _extrapolate_scan as jax_scan
 from audio_inpainting_tpu.ops.pallas.ar_scan import ar_extrapolate_pallas
@@ -38,15 +44,76 @@ def _torch(arrays, device="cpu"):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
+@functools.cache
+def _pallas(B, order, steps):
+    arrays = _inputs(B, order, steps)
+    return np.asarray(ar_extrapolate_pallas(*map(jnp.asarray, arrays), steps,
+                                            interpret=True))
+
+
+def _agreement_snr(ref, got):
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return 10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-30))
+
+
 @pytest.mark.parametrize("B,order,steps", SHAPES)
 def test_plain_loop_matches_pallas_interpret(B, order, steps):
-    arrays = _inputs(B, order, steps)
-    expected = np.asarray(ar_extrapolate_pallas(
-        *map(jnp.asarray, arrays), steps, interpret=True))
-    got = ar_scan.ar_extrapolate(*_torch(arrays), steps).numpy()
+    expected = _pallas(B, order, steps)
+    got = ar_scan.ar_extrapolate(*_torch(_inputs(B, order, steps)), steps).numpy()
     # atol 1e-4 as in tests/test_pallas_ar.py: the dot products sum in
     # another order over a few hundred dependent steps
     np.testing.assert_allclose(got, expected, atol=1e-4)
+
+
+@pytest.mark.parametrize("L", [32, 128])
+@pytest.mark.parametrize("B,order,steps", SHAPES)
+def test_blocked_form_matches_pallas_interpret(B, order, steps, L):
+    got = ar_scan.ar_extrapolate_blocked_ref(*_torch(_inputs(B, order, steps)),
+                                             steps, L).numpy()
+    # atol 1e-4 as in tests/test_pallas_ar.py: the blocked sums run in
+    # another order than the per-sample dot products
+    np.testing.assert_allclose(got, _pallas(B, order, steps), atol=1e-4)
+
+
+# steps < L and steps = 1 (one ragged block), order > L (the next entry
+# state reaches back past the block), and a fractional gain, which pins the
+# Pallas semantics: the gained prediction is fed back into the state
+@pytest.mark.parametrize("B,order,steps,L,gain", [
+    (3, 30, 20, 32, None), (4, 30, 1, 32, None), (2, 100, 90, 128, None),
+    (2, 100, 300, 32, None), (5, 30, 300, 32, 0.5), (2, 100, 700, 128, 0.5)])
+def test_blocked_form_matches_plain_loop(B, order, steps, L, gain):
+    state0, w, b, std, g, eps = _torch(_inputs(B, order, steps))
+    if gain is not None:
+        g = torch.full_like(g, gain)
+    args = (state0, w, b, std, g, eps, steps)
+    torch.testing.assert_close(ar_scan.ar_extrapolate_blocked_ref(*args, L),
+                               ar_scan.ar_extrapolate_ref(*args),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("order,L", [(30, 32), (100, 128), (100, 32)])
+def test_blocked_form_gives_exact_zeros_for_gain_zero(order, L):
+    state0, w, b, std, gain, eps = _torch(_inputs(6, order, 300))
+    gain = torch.tensor([0.0, 1.0, 0.0, 0.5, 0.0, 1.0])
+    got = ar_scan.ar_extrapolate_blocked_ref(state0, w, b, std, gain, eps,
+                                             300, L)
+    assert torch.equal(got[gain == 0], torch.zeros(3, 300))
+    assert (got[gain != 0] != 0).all()
+
+
+def test_blocked_form_on_fitted_facade_inputs():
+    """Ridge fits on 1000-sample contexts of a music clip, as the facade
+    makes them (order 30), 16 rows, 1024 steps of texture noise."""
+    clip = torch.as_tensor(synth_music_clip(0, 44100, 10.0))
+    starts = torch.linspace(1000, clip.shape[0] - 2024, 8).long()
+    ctxs, pads = tar._extract_contexts(clip, starts, starts + 1024, 1000)
+    cfg = tar.ARConfig(order=30, alpha=0.5, context_len=1000)
+    w, b, std, valid = tar._fit_ridge_batched(ctxs, pads, cfg)
+    eps = torch.as_tensor(np.random.RandomState(0).randn(16, 1024).astype(np.float32))
+    args = (tar._state0(ctxs, 30).contiguous(), w, b, std,
+            valid.to(torch.float32), eps, 1024)
+    ref = ar_scan.ar_extrapolate_ref(*args)
+    assert _agreement_snr(ref, ar_scan.ar_extrapolate_blocked_ref(*args, 32)) >= 90.0
 
 
 def test_plain_loop_above_order_128_matches_jax_scan():
