@@ -4,10 +4,11 @@
     fixed = restore(damaged, sr, method="ar")                  # on the GPU
     fixed = restore(damaged, sr, method="ar", device="cpu")
 
-The port's counterpart of audio_inpainting_tpu/api.py. This slice carries
-the linear and ar methods; the others raise NotImplementedError naming the
-ROADMAP.md item that ports them. Blind damage detection (threshold scans)
-runs when ``gaps`` / ``mask`` are not supplied.
+The port's counterpart of audio_inpainting_tpu/api.py. It carries the
+linear, ar, nmf and gp methods; the others raise NotImplementedError naming
+the ROADMAP.md item that ports them. Blind damage detection (threshold
+scans) runs when ``gaps`` / ``mask`` are not supplied. GP is only sensible
+on short segments (the reference restricts it to 0.05 s windows).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ AR_DEFAULTS = {"order": 30, "alpha": 0.5, "texture": True,
                "context_len": 1000, "passes": 2}
 
 # methods of the JAX facade that later slices port (ROADMAP.md, Queue 1)
-_NOT_PORTED = {"nmf": 9, "gp": 11, "unet": 12, "gan": 13, "diffusion": 14}
+_NOT_PORTED = {"unet": 12, "gan": 13, "diffusion": 14}
 
 
 def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
@@ -34,7 +35,7 @@ def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
 
     gaps: optional [(start, end)] damaged spans; detected by threshold scan
     when omitted. mask: optional bool array (True = valid sample),
-    alternative to gaps for linear. device: where the work runs, cuda by
+    alternative to gaps for linear/gp/nmf. device: where the work runs, cuda by
     default; RuntimeError when no GPU is present and none is named.
     Returns float32 numpy on the host.
     """
@@ -74,6 +75,33 @@ def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
         out = ar_restore_gaps(torch.tensor(damaged, device=dev), _gaps(), cfg,
                               seed)
         return out.cpu().numpy()
+
+    if method == "gp":
+        from .methods.gp import GPConfig, gp_restore
+
+        out, _ = gp_restore(damaged, _mask(), sr, GPConfig(**cfg_kwargs),
+                            seed, device=dev)
+        return out
+
+    if method == "nmf":
+        from .corrupt import mask_to_bad_columns, silent_frame_columns
+        from .methods.nmf import NMFConfig, nmf_inpaint_columns
+        from .ops import istft, magphase, polar, stft, torch_stft_config
+
+        scfg = torch_stft_config(1024, 256)
+        mag, phase = magphase(stft(torch.tensor(damaged, device=dev), scfg))
+        n_cols = mag.shape[1]
+        if gaps is not None or mask is not None:
+            # explicit damage goes through the blind path's hop-window
+            # criterion: a column is bad when >= 80% of its window is damaged
+            bad = mask_to_bad_columns(_mask(), n_cols, 256, device=dev)
+        else:   # blind (reference main4_NMF_gap.py:28-40)
+            bad = np.zeros(n_cols, bool)
+            bad[silent_frame_columns(damaged, n_cols, 256, threshold=threshold,
+                                     silent_fraction=0.8, device=dev)] = True
+        out_mag = nmf_inpaint_columns(mag, torch.as_tensor(bad, device=dev),
+                                      NMFConfig(**cfg_kwargs), seed)
+        return istft(polar(out_mag, phase), scfg, n).cpu().numpy()
 
     if method in _NOT_PORTED:
         raise NotImplementedError(

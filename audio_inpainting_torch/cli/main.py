@@ -1,16 +1,41 @@
-"""Command line of the port: the ``restore`` command.
+"""Command line of the port.
 
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --method ar
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --device cpu
+  python -m audio_inpainting_torch part0|part1|part2|all --input clip.wav
 
-It reads the WAV through the int16 chain, restores it with the facade and
-writes an int16 WAV. It runs on the GPU unless ``--device cpu`` is given.
+``restore`` reads the WAV through the int16 chain, restores it with the
+facade and writes an int16 WAV. ``part0``/``part1``/``part2``/``all`` run
+the scenario pipelines' legs ported so far, write the demo_assets set and
+print each leg's metrics. Everything runs on the GPU unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
 import time
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+
+
+def _add_common(p):
+    p.add_argument("--input", default="vocals_accompaniment_10s.wav",
+                   help="source clip (the reference's 10 s WAV)")
+    p.add_argument("--assets-dir", default="demo_assets")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--json", action="store_true", help="print metrics as JSON")
+    _add_device(p)
+
+
+def _add_gp(p):
+    p.add_argument("--gp-restarts", type=int, default=5)
+    p.add_argument("--gp-steps", type=int, default=20)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,9 +53,33 @@ def build_parser() -> argparse.ArgumentParser:
                           "naturally quiet passages below it are treated as "
                           "damage and rewritten (reference semantics)")
     cmd.add_argument("--seed", type=int, default=0)
-    cmd.add_argument("--device", default="cuda",
-                     help="torch device to run on (default cuda)")
+    _add_device(cmd)
+
+    p0 = sub.add_parser("part0", help="0.05 s segment: GP, AR, AR+texture, NMF")
+    _add_common(p0)
+    _add_gp(p0)
+    p1 = sub.add_parser("part1", help="random frame dropouts: linear, AR, NMF")
+    _add_common(p1)
+    p2 = sub.add_parser("part2", help="2 s hole: linear, AR, NMF")
+    _add_common(p2)
+    pa = sub.add_parser("all", help="run all three scenario pipelines")
+    _add_common(pa)
+    _add_gp(pa)
     return ap
+
+
+def _emit(name: str, results: dict, as_json: bool):
+    if as_json:
+        print(json.dumps({name: results}))
+        return
+    print(f"== {name} ==")
+    for method, vals in results.items():
+        if isinstance(vals, dict):
+            row = "  ".join(f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+                            for k, v in vals.items())
+            print(f"  {method:12s} {row}")
+        else:
+            print(f"  {method:12s} {vals}")
 
 
 def main(argv=None) -> int:
@@ -47,6 +96,22 @@ def main(argv=None) -> int:
         save_wav_int16(out, sr, args.output_wav)
         print(f"restored {args.input_wav} -> {args.output_wav} "
               f"({args.method}, {args.device}, {time.time() - t_start:.1f}s)")
+        return 0
+    from ..pipelines import run_part0, run_part1, run_part2
+
+    if args.cmd in ("part0", "all"):
+        from ..methods.gp import GPConfig
+
+        gp_cfg = GPConfig(n_restarts=args.gp_restarts, opt_steps=args.gp_steps)
+        _emit("part0", run_part0(args.input, args.assets_dir, seed=args.seed,
+                                 gp_cfg=gp_cfg, device=args.device), args.json)
+    if args.cmd in ("part1", "all"):
+        _emit("part1", run_part1(args.input, args.assets_dir, seed=args.seed,
+                                 device=args.device), args.json)
+    if args.cmd in ("part2", "all"):
+        _emit("part2", run_part2(args.input, args.assets_dir, seed=args.seed,
+                                 device=args.device), args.json)
+    print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
     return 0
 
 

@@ -1,4 +1,5 @@
-from .masks import random_dropout_mask, contiguous_gap_mask, center_gap_bounds
+from .masks import (random_dropout_mask, random_frame_mask, contiguous_gap_mask,
+                    center_gap_bounds)
 from .detect import (
     silence_mask,
     find_main_gap,
@@ -10,6 +11,7 @@ from .synth import synth_music_clip
 
 __all__ = [
     "random_dropout_mask",
+    "random_frame_mask",
     "contiguous_gap_mask",
     "center_gap_bounds",
     "silence_mask",

@@ -62,3 +62,29 @@ def center_gap_bounds(n_samples: int, sr: int, half_seconds: float = 1.0) -> tup
     center = n_samples // 2
     half = int(half_seconds * sr)
     return center - half, center + half
+
+
+def random_frame_mask(generator: torch.Generator, n_freq: int, n_frames: int,
+                      mask_ratio: float = 0.3, min_time_mask: int = 5,
+                      max_time_mask: int = 30,
+                      min_segments: int = 0) -> torch.Tensor:
+    """SpecAugment-style random STFT-frame dropout (Part 1 corruption), on
+    the generator's device.
+
+    Matches reference main5_UNet_mask.py:111-127: full-band stripes,
+    num_segments = max(min_segments, n_frames*ratio/max*2), widths uniform
+    in [min, max), starts uniform in [0, n_frames - width). Returns a
+    float32 (n_freq, n_frames) mask, 1 = keep.
+    """
+    num_segments = max(min_segments,
+                       int(n_frames * mask_ratio / max_time_mask * 2))
+    dev = generator.device
+    lens = torch.randint(min_time_mask, max_time_mask, (num_segments,),
+                         generator=generator, device=dev)
+    u = torch.rand(num_segments, generator=generator, device=dev,
+                   dtype=torch.float64)
+    # a stripe wider than the clip starts at 0 and is cut at its end
+    starts = (u * (n_frames - lens)).long().clamp_min(0)
+    ends = (starts + lens).clamp_max(n_frames)
+    keep = ~_stamp_intervals(starts, ends, n_frames)
+    return keep.to(torch.float32)[None, :].repeat(n_freq, 1)

@@ -93,7 +93,7 @@ def stft(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return z * cfg.scale
 
 
-def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add of (n_frames, frame_len) frames at stride ``hop``."""
     n_frames, frame_len = frames.shape
     total = (n_frames - 1) * hop + frame_len
@@ -115,8 +115,8 @@ def istft(z: torch.Tensor, cfg: StftConfig, length: int) -> torch.Tensor:
         return torch.istft(z, cfg.n_fft, cfg.hop, window=win, center=True,
                            length=length)
     frames = torch.fft.irfft(z.T, n=cfg.n_fft, dim=-1)
-    num = _overlap_add(frames * win[None, :], cfg.hop)
-    den = _overlap_add((win * win).expand_as(frames), cfg.hop)
+    num = overlap_add(frames * win[None, :], cfg.hop)
+    den = overlap_add((win * win).expand_as(frames), cfg.hop)
     sig = num / torch.where(den > 1e-11, den, torch.ones_like(den))
     sig = sig[cfg.n_fft // 2:]
     if sig.shape[0] >= length:

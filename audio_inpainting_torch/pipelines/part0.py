@@ -1,10 +1,11 @@
 """Part 0: tiny contiguous gap in a 0.05 s mid-clip segment.
 
-The port's slice of audio_inpainting_tpu/pipelines/part0.py: a 20% gap at
-40% of the segment, restored by bidirectional AR without texture
-(main2_AR.py) and with texture injection (main3_AR_text.py). The GP and
-NMF legs and the waveform figures wait for later slices (ROADMAP.md,
-Queue 1).
+The port of audio_inpainting_tpu/pipelines/part0.py: a 20% gap at 40% of
+the segment, restored by a Gaussian process (main1_gp.py, on the segment
+and on the synthetic 200 + 450 Hz signal), bidirectional AR without
+texture (main2_AR.py) and with texture injection (main3_AR_text.py), and
+iterative NMF (main4_NMF.py). The waveform figures (io/viz.py) wait for a
+later slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -14,11 +15,16 @@ import time
 
 import numpy as np
 
+import torch
+
 from ..corrupt import contiguous_gap_mask
 from ..device import resolve_device
 from ..io import load_mono_normalized
 from ..methods import ARConfig, ar_restore_gap
+from ..methods.gp import GPConfig, gp_restore
+from ..methods.nmf import NMFConfig, nmf_inpaint_iterative
 from ..metrics import local_snr_db, snr_db
+from ..ops import istft, magphase, polar, scipy_stft_config, stft
 from .registry import write_artifacts
 
 
@@ -45,10 +51,11 @@ def synthetic_signal(duration: float = 0.05, sr: int = 16000,
 
 def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
               duration: float = 0.05, gap_ratio: float = 0.2,
-              seed: int = 0, device=None) -> dict:
-    """Run the AR and AR+texture legs; write their artifacts under
-    ``assets_dir`` and return their metrics. Runs on ``device`` (cuda by
-    default)."""
+              seed: int = 0, gp_cfg: GPConfig | None = None,
+              device=None) -> dict:
+    """Run the GP, synthetic GP, AR, AR+texture and NMF legs; write their
+    artifacts under ``assets_dir`` and return their metrics. Runs on
+    ``device`` (cuda by default)."""
     dev = resolve_device(device)
     if input_file is None or not os.path.exists(input_file):
         # reference behavior: synthesize when the clip is missing
@@ -59,10 +66,28 @@ def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
         n = int(duration * sr)
         start = len(data) // 2
         signal = data[start : start + n]
-    _, (gs, ge) = contiguous_gap_mask(n, gap_ratio)
+    mask, (gs, ge) = contiguous_gap_mask(n, gap_ratio)
     corrupted = signal.copy()
     corrupted[gs:ge] = 0.0
     results: dict = {"gap": (gs, ge), "sr": sr}
+
+    # --- GP (main1_gp.py) ---
+    t0 = time.time()
+    gp_out, _ = gp_restore(signal, mask, sr, gp_cfg or GPConfig(), seed,
+                           device=dev)
+    _metrics("gp", signal, gp_out, gs, ge, t0, results, dev)
+    write_artifacts(corrupted, sr, assets_dir, "part0", "gp_corrupted")
+    write_artifacts(gp_out, sr, assets_dir, "part0", "gp")
+    write_artifacts(signal, sr, assets_dir, "part0", "gp_original")
+
+    # --- synthetic GP demo: the main1_gp.py fallback on its 200 + 450 Hz
+    # synthetic signal, shipped beside the real-clip assets ---
+    t0 = time.time()
+    syn_sr, syn_sig = synthetic_signal(duration, seed=seed)
+    syn_mask, (ss, se) = contiguous_gap_mask(len(syn_sig), gap_ratio)
+    syn_out, _ = gp_restore(syn_sig, syn_mask, syn_sr, gp_cfg or GPConfig(),
+                            seed, device=dev)
+    _metrics("gp_synthetic", syn_sig, syn_out, ss, se, t0, results, dev)
 
     # --- Bidirectional AR, order 30, no texture (main2_AR.py) ---
     t0 = time.time()
@@ -94,4 +119,34 @@ def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
     write_artifacts(corrupted, sr, assets_dir, "part0", "ar_texture_corrupted")
     write_artifacts(art_out, sr, assets_dir, "part0", "ar_texture")
     write_artifacts(signal, sr, assets_dir, "part0", "ar_texture_original")
+
+    # --- Iterative NMF (main4_NMF.py): 512/384 STFT, faded gap, 50 refits ---
+    t0 = time.time()
+    nmf_corr = signal.copy()
+    fade_len = min(100, gs, n - ge)
+    if fade_len > 0:  # the reference fades into the gap (main4_NMF.py:53-58)
+        window = np.linspace(1, 0, fade_len, dtype=np.float32)
+        nmf_corr[gs - fade_len : gs] *= window
+        nmf_corr[ge : ge + fade_len] *= window[::-1]
+    nmf_corr[gs:ge] = 0.0
+    scfg = scipy_stft_config(512, 384)
+    mag, phase = magphase(stft(torch.tensor(nmf_corr, device=dev), scfg))
+    t_step = 128 / sr  # hop/sr: scipy stft frame spacing
+    col_start = int(gs / sr / t_step)
+    col_end = int(ge / sr / t_step)
+    out_mag = nmf_inpaint_iterative(
+        mag, col_start, col_end,
+        NMFConfig(n_components=40, n_iter=200, outer_iters=50), seed)
+    nmf_out = istft(polar(out_mag, phase), scfg, n).cpu().numpy()
+    # boundary crossfade back into the clean signal (main4_NMF.py:114-126)
+    final = signal.copy()
+    bw = 50
+    ramp = np.linspace(0, 1, bw, dtype=np.float32)
+    final[gs:ge] = nmf_out[gs:ge]
+    final[gs - bw : gs] = final[gs - bw : gs] * (1 - ramp) + nmf_out[gs - bw : gs] * ramp
+    final[ge : ge + bw] = final[ge : ge + bw] * ramp + nmf_out[ge : ge + bw] * (1 - ramp)
+    _metrics("nmf", signal, final, gs, ge, t0, results, dev)
+    write_artifacts(nmf_corr, sr, assets_dir, "part0", "nmf_corrupted")
+    write_artifacts(final, sr, assets_dir, "part0", "nmf")
+    write_artifacts(signal, sr, assets_dir, "part0", "nmf_original")
     return results

@@ -1,9 +1,9 @@
 """Part 2: one 2-second hole in the middle of the 10 s clip.
 
 The port's slice of audio_inpainting_tpu/pipelines/part2.py: the corruption,
-the linear leg and the AR leg (reference generate_part2_data.py,
-main3_AR_text_gap.py). NMF, GAN and diffusion legs wait for later slices
-(ROADMAP.md, Queue 1).
+the linear, AR and NMF legs (reference generate_part2_data.py,
+main3_AR_text_gap.py, main4_NMF_gap.py). The GAN and diffusion legs wait
+for later slices (ROADMAP.md, Queue 1).
 
 1. corrupt: zero the centered 2 s window; write damaged + linear baseline +
    original.
@@ -12,6 +12,7 @@ main3_AR_text_gap.py). NMF, GAN and diffusion legs wait for later slices
    detector spans nearly the whole clip on real music), and fill it with
    order-100 texture AR over 5000-sample contexts, chunked 128 samples
    per step.
+3. NMF: per-column silent-fraction mask (1e-4 / 90%), one-shot masked NMF.
 """
 
 from __future__ import annotations
@@ -19,13 +20,18 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
-from ..corrupt import center_gap_bounds, find_gaps
+from ..corrupt import center_gap_bounds, find_gaps, silent_frame_columns
 from ..device import resolve_device
 from ..io import load_mono_normalized
 from ..methods import ARConfig, ar_restore_gap, linear_fill_gap
+from ..methods.nmf import NMFConfig, nmf_inpaint_columns
 from ..metrics import local_snr_db, lsd_db, snr_db
+from ..ops import istft, magphase, polar, stft, torch_stft_config
 from .registry import asset_path, write_artifacts
+
+_CFG = torch_stft_config(1024, 256)
 
 
 def _metrics(name, original, restored, gs, ge, t0, results, device):
@@ -48,7 +54,7 @@ def detect_main_gap(damaged: np.ndarray, threshold: float = 1e-4,
 
 def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
               device=None) -> dict:
-    """Run the linear and AR legs on ``input_file``; write their artifacts
+    """Run the linear, AR and NMF legs on ``input_file``; write their artifacts
     under ``assets_dir`` and return their metrics. Runs on ``device``
     (cuda by default)."""
     dev = resolve_device(device)
@@ -84,4 +90,16 @@ def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
     ar = np.clip(ar, -1.0, 1.0)
     _metrics("ar", data, ar, gs, ge, t0, results, dev)
     write_artifacts(ar, sr, assets_dir, "part2", "ar")
+
+    # --- 3. one-shot NMF --------------------------------------------------
+    t0 = time.time()
+    mag_d, phase_d = magphase(stft(torch.tensor(damaged, device=dev), _CFG))
+    bad = np.zeros(mag_d.shape[1], bool)
+    bad[silent_frame_columns(damaged, mag_d.shape[1], 256, threshold=1e-4,
+                             silent_fraction=0.9, device=dev)] = True
+    out_mag = nmf_inpaint_columns(mag_d, torch.as_tensor(bad, device=dev),
+                                  NMFConfig(n_components=40, n_iter=200), 42)
+    nmf = istft(polar(out_mag, phase_d), _CFG, n).cpu().numpy()
+    _metrics("nmf", data, nmf, gs, ge, t0, results, dev)
+    write_artifacts(nmf, sr, assets_dir, "part2", "nmf")
     return results

@@ -5,11 +5,12 @@
 
 It builds the port's CUDA kernel from csrc/, holds it against its plain
 torch version at the shapes the restore path gives it, times both, then
-drives the port's main path: the ``restore(..., method="ar")`` facade on a
-10 s, 44.1 kHz clip with Part-1-style dropouts, and the Part 2 / Part 0
-pipelines. Each phase prints one JSON line; any failed check raises. The
-last three lines are the kernel table, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+drives the port's paths: the masked NMF at Part 1's and Part 0's shapes
+(GPU against CPU), the ``restore`` facade (ar and nmf on a 10 s, 44.1 kHz
+clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
+pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one JSON
+line; any failed check raises. The last three lines are the kernel table,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository. It imports nothing of JAX.
@@ -31,6 +32,14 @@ import torch
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 SR = 44100
+# the bound the CPU tests hold the port's NMF to against the JAX package
+# (tests/test_torch_nmf.py): filled columns within 1e-5 of their peak
+NMF_RTOL_OF_PEAK = 1e-5
+# local SNR a GP restoration may fall short of its reference by, in dB
+# (tests/test_torch_gp.py, tests/test_torch_part1.py)
+GP_MARGIN_DB = 3.0
+# pipeline metrics of the GPU run against the CPU run with the same draws
+DB_TOL = 0.05
 
 
 def emit(obj) -> None:
@@ -70,8 +79,9 @@ def cuda_ms(fn, calls: int, rounds: int = 5, warmup: int = 2) -> float:
 
 def device_profile(fn, top: int = 8, kernel: str = "ar_scan") -> dict:
     """torch.profiler over one call of ``fn``: device busy time, the wall
-    time, the ``top`` device entries by self time (kernels, copies), and
-    the device time of the entries whose name holds ``kernel``."""
+    time, the number of device calls (kernels, copies), the ``top`` device
+    entries by self time, and the device time of the entries whose name
+    holds ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -90,6 +100,7 @@ def device_profile(fn, top: int = 8, kernel: str = "ar_scan") -> dict:
     kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_calls": sum(e.count for e in events),
             "kernel_device_ms": kernel_ms,
             "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms else None,
             "top": [{"name": e.key[:60], "calls": e.count,
@@ -273,8 +284,131 @@ def phase_facade(dev, tmp: Path):
           "damaged": {"snr_db": float(snr_db(clean, damaged)),
                       "lsd_db": float(lsd_db(clean, damaged))},
           "restored": {"snr_db": float(snr_db(clean, out)),
-                       "lsd_db": float(lsd_db(clean, out))}})
+                       "lsd_db": float(lsd_db(clean, out))},
+          "nmf": facade_nmf(clean, damaged),
+          "gp": facade_gp(clean)})
     return launches
+
+
+def facade_nmf(clean, damaged) -> dict:
+    """restore(method="nmf") on the 10 s clip, on the GPU and on the CPU
+    (the same init draws: both come from a seeded CPU generator)."""
+    from audio_inpainting_torch import restore
+    from audio_inpainting_torch.metrics import lsd_db, snr_db
+
+    restore(damaged, SR, method="nmf")                       # cold
+    t0 = time.perf_counter()
+    gpu = restore(damaged, SR, method="nmf")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    cpu = restore(damaged, SR, method="nmf", device="cpu")
+    if gpu.shape != damaged.shape or not np.isfinite(gpu).all():
+        raise AssertionError("nmf facade output has the wrong shape or is not finite")
+    agree = agreement_snr_db(torch.as_tensor(cpu), torch.as_tensor(gpu))
+    if not agree >= 60.0:
+        raise AssertionError(f"GPU vs CPU nmf facade: agreement {agree} dB < 60 dB")
+    return {"wall_s": wall_s, "gpu_vs_cpu_agreement_snr_db": agree,
+            "snr_db": float(snr_db(clean, gpu)), "lsd_db": float(lsd_db(clean, gpu))}
+
+
+def facade_gp(clean) -> dict:
+    """restore(method="gp") on Part 0's segment (0.05 s mid-clip, a 20%
+    gap at 40%): GP is O(n^3), so not on the 10 s clip."""
+    from audio_inpainting_torch import restore
+    from audio_inpainting_torch.corrupt import contiguous_gap_mask
+    from audio_inpainting_torch.metrics import local_snr_db
+
+    n = int(0.05 * SR)
+    seg = clean[len(clean) // 2:len(clean) // 2 + n]
+    _, (gs, ge) = contiguous_gap_mask(n, 0.2)
+    damaged = seg.copy()
+    damaged[gs:ge] = 0.0
+    restore(damaged, SR, method="gp", gaps=[(gs, ge)])       # cold
+    t0 = time.perf_counter()
+    gpu = restore(damaged, SR, method="gp", gaps=[(gs, ge)])
+    wall_s = time.perf_counter() - t0
+    profiled = device_profile(lambda: restore(damaged, SR, method="gp",
+                                              gaps=[(gs, ge)]), kernel="potrf")
+    t0 = time.perf_counter()
+    cpu = restore(damaged, SR, method="gp", gaps=[(gs, ge)], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.isfinite(gpu).all() or not np.array_equal(gpu[:gs], damaged[:gs]) \
+            or not np.array_equal(gpu[ge:], damaged[ge:]):
+        raise AssertionError("gp facade output is not finite or changed clean samples")
+    snr = float(local_snr_db(seg, gpu, gs, ge))
+    snr_cpu = float(local_snr_db(seg, cpu, gs, ge))
+    if not snr >= snr_cpu - GP_MARGIN_DB:
+        raise AssertionError(f"gp facade: GPU local SNR {snr} dB is more than "
+                             f"{GP_MARGIN_DB} dB below the CPU's {snr_cpu} dB")
+    return {"samples": n, "gap": [gs, ge], "fit_points": (n - (ge - gs) + 3) // 4,
+            "wall_s": wall_s, "cpu_wall_s": cpu_s, "local_snr_db": snr,
+            "cpu_local_snr_db": snr_cpu, "profile": profiled}
+
+
+def phase_nmf(dev):
+    """The masked NMF at Part 1's one-shot shape (513, 1723) and Part 0's
+    iterative one, on the GPU and on the CPU with the same init draws."""
+    from audio_inpainting_torch.corrupt import random_frame_mask, synth_music_clip
+    from audio_inpainting_torch.methods.nmf import (NMFConfig, nmf_inpaint_columns,
+                                                    nmf_inpaint_iterative)
+    from audio_inpainting_torch.ops import (magphase, scipy_stft_config, stft,
+                                            torch_stft_config)
+
+    def rel_err(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    clip = torch.as_tensor(synth_music_clip(2, SR, 10.0))
+    mag, _ = magphase(stft(clip, torch_stft_config(1024, 256)))
+    bad = random_frame_mask(torch.Generator().manual_seed(0), 1, mag.shape[1])[0] == 0
+    cfg = NMFConfig(n_components=40, n_iter=200)
+    mag_d, bad_d = mag.to(dev), bad.to(dev)
+    gpu = nmf_inpaint_columns(mag_d, bad_d, cfg, 42)
+    t0 = time.perf_counter()
+    cpu = nmf_inpaint_columns(mag, bad, cfg, 42)
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(gpu[:, ~bad_d].cpu(), mag[:, ~bad]):
+        raise AssertionError("NMF on the GPU changed a good column")
+    one_err = rel_err(gpu[:, bad_d], cpu[:, bad])
+    one_shot = {"shape": list(mag.shape), "k": 40, "n_iter": 200,
+                "bad_cols": int(bad.sum()), "max_rel_err_vs_cpu": one_err,
+                "ms": cuda_ms(lambda: nmf_inpaint_columns(mag_d, bad_d, cfg, 42),
+                              calls=2),
+                "cpu_ms": cpu_s * 1e3,
+                "profile": device_profile(
+                    lambda: nmf_inpaint_columns(mag_d, bad_d, cfg, 42), kernel="gemm")}
+
+    # Part 0: the mid-clip 0.05 s segment, faded 20% gap at 40%, scipy STFT
+    n = int(0.05 * SR)
+    seg = clip[len(clip) // 2:len(clip) // 2 + n].clone()
+    gs, ge = int(0.4 * n), int(0.4 * n) + int(0.2 * n)
+    seg[gs:ge] = 0.0
+    pmag, _ = magphase(stft(seg, scipy_stft_config(512, 384)))
+    cs, ce = int(gs / 128), int(ge / 128)
+    icfg = NMFConfig(n_components=40, n_iter=200, outer_iters=50)
+    pmag_d = pmag.to(dev)
+    nmf_inpaint_iterative(pmag_d, cs, ce, icfg, 0)             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    igpu = nmf_inpaint_iterative(pmag_d, cs, ce, icfg, 0)
+    torch.cuda.synchronize()
+    it_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    icpu = nmf_inpaint_iterative(pmag, cs, ce, icfg, 0)
+    icpu_s = time.perf_counter() - t0
+    it_err = rel_err(igpu[:, cs:ce], icpu[:, cs:ce])
+    iterative = {"shape": list(pmag.shape), "cols": [cs, ce], "k": 40,
+                 "n_iter": 200, "outer_iters": 50, "max_rel_err_vs_cpu": it_err,
+                 "wall_s": it_s, "cpu_wall_s": icpu_s,
+                 "profile": device_profile(
+                     lambda: nmf_inpaint_iterative(pmag_d, cs, ce, icfg, 0),
+                     kernel="gemm")}
+    for name, err in (("one-shot", one_err), ("iterative", it_err)):
+        if not err <= NMF_RTOL_OF_PEAK:
+            raise AssertionError(f"NMF {name}: GPU vs CPU {err} of peak > "
+                                 f"{NMF_RTOL_OF_PEAK}")
+    emit({"phase": "nmf", "tolerance": f"filled columns within "
+          f"{NMF_RTOL_OF_PEAK:g} of their peak", "draws": "CPU generator, "
+          "the same on both devices", "one_shot": one_shot, "iterative": iterative})
 
 
 def check_artifacts(assets: str, part: str, methods, sr: int):
@@ -288,6 +422,105 @@ def check_artifacts(assets: str, part: str, methods, sr: int):
         with open(asset_path(assets, part, m, "image"), "rb") as f:
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError(f"{part}/{m}: image is not a PNG")
+
+
+def finite_metrics(name: str, res: dict) -> None:
+    for leg, vals in res.items():
+        if isinstance(vals, dict) and not all(
+                np.isfinite(v) for k, v in vals.items() if k.endswith("db")):
+            raise AssertionError(f"{name}/{leg}: metric not finite: {vals}")
+
+
+def phase_part1(dev, tmp: Path):
+    """run_part1 on a 10 s, 44.1 kHz clip: the corruption, the linear, AR
+    (OLA equalization, then the CUDA kernel over the residual gaps) and
+    NMF legs, on the GPU; then on the CPU for the legs whose draws are the
+    same on both devices."""
+    from audio_inpainting_torch.corrupt import synth_music_clip
+    from audio_inpainting_torch.io import load_mono_normalized, save_wav_int16
+    from audio_inpainting_torch.methods import ARConfig, ar_restore_gaps
+    from audio_inpainting_torch.methods.ola_eq import equalize_dropped_frames
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.pipelines import asset_path, run_part1
+
+    clip = str(tmp / "part1_clip.wav")
+    save_wav_int16(synth_music_clip(2, SR, 10.0), SR, clip)
+    assets = str(tmp / "assets")
+    t0 = time.perf_counter()
+    run_part1(clip, assets, seed=0)                           # cold
+    cold_s = time.perf_counter() - t0
+
+    ar_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_part1(clip, assets, seed=0)
+    wall_s = time.perf_counter() - t0
+    launches = ar_scan.LAUNCHES
+    passes = 2
+    if res["n_gaps"] == 0 or launches != passes:
+        raise AssertionError(f"Part 1's AR leg launched the kernel {launches} "
+                             f"times over {res['n_gaps']} gaps, not {passes}")
+    check_artifacts(assets, "part1", ["damaged", "original", "linear", "ar", "nmf"], SR)
+    finite_metrics("part1", res)
+
+    # the AR leg alone, on its own inputs, under the profiler
+    _, damaged = load_mono_normalized(asset_path(assets, "part1", "damaged"))
+    eq, gaps, _ = equalize_dropped_frames(damaged, len(damaged) // 256 + 1)
+    cfg = ARConfig(order=30, alpha=0.5, texture=True, texture_scale=0.1,
+                   context_len=1000, passes=passes)
+    ar_profile = device_profile(lambda: ar_restore_gaps(eq, gaps, cfg, 1))
+    kernel_row = part1_kernel_row(dev, eq, gaps, cfg)
+    whole_profile = device_profile(lambda: run_part1(clip, str(tmp / "prof"), seed=0))
+
+    t0 = time.perf_counter()
+    cpu = run_part1(clip, str(tmp / "cpu"), seed=0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    deltas = {leg: {k: res[leg][k] - cpu[leg][k] for k in ("snr_db", "lsd_db")}
+              for leg in ("damaged", "linear", "nmf")}
+    if cpu["n_gaps"] != res["n_gaps"] or not all(
+            abs(d) <= DB_TOL for leg in deltas.values() for d in leg.values()):
+        raise AssertionError(f"Part 1 GPU vs CPU: {deltas}, gaps "
+                             f"{res['n_gaps']} / {cpu['n_gaps']}")
+    emit({"phase": "part1", "samples": len(damaged), "n_gaps": res["n_gaps"],
+          "B": 2 * res["n_gaps"], "max_len": res["ar_max_len"],
+          "launches": launches, "cold_s": cold_s, "wall_s": wall_s,
+          "legs": {leg: res[leg] for leg in ("damaged", "linear", "ar", "nmf")},
+          "cpu_wall_s": cpu_s, "gpu_minus_cpu_db": deltas,
+          "cpu_ar": cpu["ar"], "kernel": kernel_row, "ar_profile": ar_profile,
+          "profile": whole_profile})
+    return launches, kernel_row
+
+
+def part1_kernel_row(dev, eq, gaps, cfg) -> dict:
+    """The kernel at the shape Part 1's AR leg gives it: the leg's first
+    pass fitted on the equalized clip, eps a seeded standard normal."""
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+
+    sig = torch.as_tensor(eq, device=dev)
+    starts = torch.tensor([s for s, _ in gaps], device=dev)
+    ends = torch.tensor([e for _, e in gaps], device=dev)
+    ctxs, pads = ar._extract_contexts(sig, starts, ends, cfg.context_len)
+    w, b, std, valid = ar._fit_ridge_batched(ctxs, pads, cfg)
+    B, steps = 2 * len(gaps), max(e - s for s, e in gaps)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eps = torch.randn((B, steps), generator=gen, device=dev)
+    args = (ar._state0(ctxs, cfg.order).contiguous(), w, b,
+            std * cfg.texture_scale, valid.to(torch.float32), eps, steps)
+    got = ar_scan.ar_extrapolate(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ar_scan.ar_extrapolate_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    snr = agreement_snr_db(ref, got)
+    if not snr >= 60.0:
+        raise AssertionError(f"kernel vs plain at Part 1's shape: agreement {snr} dB")
+    bms, bound_by = bound_ms(B, cfg.order, steps)
+    return {"B": B, "p": cfg.order, "steps": steps, "agreement_snr_db": snr,
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": cuda_ms(lambda: ar_scan.ar_extrapolate(*args), calls=10),
+            "plain_ms": plain_ms, "plain_runs": 1, "chunked_ms": None,
+            "bound_ms": bms, "bound_by": bound_by}
 
 
 def phase_pipelines(dev, tmp: Path):
@@ -308,7 +541,7 @@ def phase_pipelines(dev, tmp: Path):
     part2 = run_part2(clip, assets, seed=0)
     part2_s = time.perf_counter() - t0
     part2_launches = ar_scan.LAUNCHES
-    check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar"], SR)
+    check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar", "nmf"], SR)
 
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -317,18 +550,16 @@ def phase_pipelines(dev, tmp: Path):
     part0_launches = ar_scan.LAUNCHES
     if part0_launches != 6:   # the AR leg once, the texture leg five times
         raise AssertionError(f"Part 0 launched the kernel {part0_launches} times, not 6")
-    check_artifacts(assets, "part0", ["ar", "ar_corrupted", "ar_original",
-                                      "ar_texture", "ar_texture_corrupted",
-                                      "ar_texture_original"], SR)
+    check_artifacts(assets, "part0", [
+        f"{leg}{kind}" for leg in ("gp", "ar", "ar_texture", "nmf")
+        for kind in ("", "_corrupted", "_original")], SR)
     for name, res in (("part2", part2), ("part0", part0)):
-        for leg, vals in res.items():
-            if isinstance(vals, dict) and not all(
-                    np.isfinite(v) for k, v in vals.items() if k.endswith("db")):
-                raise AssertionError(f"{name}/{leg}: metric not finite: {vals}")
+        finite_metrics(name, res)
     emit({"phase": "pipelines",
           "part2": {**part2, "cold_s": cold_s, "wall_s": part2_s,
                     "launches": part2_launches},
           "part0": {**part0, "wall_s": part0_s, "launches": part0_launches}})
+    return {"part2": part2_launches, "part0": part0_launches}
 
 
 def main() -> int:
@@ -338,10 +569,13 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_env(dev)
     rows = phase_kernel(dev)
+    phase_nmf(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_facade(dev, Path(tmp))
-        phase_pipelines(dev, Path(tmp))
-    fitted = [r for r in rows if "ms" in r]
+        part1_launches, part1_row = phase_part1(dev, Path(tmp))
+        by_path = {"facade": launches, "part1": part1_launches,
+                   **phase_pipelines(dev, Path(tmp))}
+    fitted = [r for r in rows if "ms" in r] + [part1_row]
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",
@@ -351,6 +585,7 @@ def main() -> int:
         "ms": facade["ms"], "plain_ms": facade["plain_ms"],
         "bound_ms": facade["bound_ms"], "bound_by": facade["bound_by"],
         "library_ms": None, "chunked_ms": facade["chunked_ms"],
+        "launches_by_path": by_path,
         "shape": [facade["B"], facade["p"], facade["steps"]],
         "shapes": [{"shape": [r["B"], r["p"], r["steps"]],
                     **{k: r[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",

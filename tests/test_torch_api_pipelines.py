@@ -102,16 +102,18 @@ def test_restore_matches_jax(method, jax_noise):
 def test_restore_needs_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros(1000, np.float32)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tapi.restore(x, 8000, "ar")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tapi.restore(x, 8000, "nmf", device="cpu")
+    for method in ("ar", "nmf", "gp"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tapi.restore(x, 8000, method)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tapi.restore(x, 8000, "unet", device="cpu")
 
 
 def _stub_jax_heavy_legs(monkeypatch):
-    """The JAX pipelines also run legs this slice does not port (GP, NMF,
-    GAN, diffusion, waveform figures); stub them so the shared legs run
-    as they are, quickly."""
+    """The JAX pipelines also run legs these tests do not compare (GP, NMF,
+    GAN, diffusion, waveform figures); stub them so the AR and linear legs
+    run as they are, quickly. tests/test_torch_part1.py compares the GP
+    and NMF legs."""
     monkeypatch.setattr(jpart2, "nmf_inpaint_columns", lambda mag, *a, **k: mag)
     monkeypatch.setattr(jpart2, "gan_train_restore",
                         lambda norm, *a, **k: (norm, None))
@@ -207,7 +209,8 @@ def test_no_jax_import_in_port_sources():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "flax"), (path, name)
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax",
+                                                  "sklearn"), (path, name)
                 assert "audio_inpainting_tpu" not in name, (path, name)
 
 
