@@ -6,19 +6,23 @@ package:
   io/        L0  WAV read/write, normalization, PNG rendering
   ops/       L1  STFT/iSTFT (torch.stft), the AR recurrence kernel wrapper
   corrupt/   L2  mask generators + blind damage detectors
-  methods/   L3  linear, AR, masked NMF, OLA gain equalization and GP
-                 restoration; the uniform ``restore`` API
+  models/    L3  the spectrogram U-Net, GAN generator and discriminator
+  methods/   L3  linear, AR, masked NMF, OLA gain equalization, GP, and the
+                 per-clip U-Net and GAN training loops; the uniform
+                 ``restore`` API
   metrics/   L4  SNR / local SNR / LSD
   pipelines/ L6  Part 0 / 1 / 2 scenario pipelines, the demo_assets contract
-  cli/           the ``restore`` and ``part0``/``part1``/``part2``/``all``
-                 commands
+  cli/           the ``restore``, ``part0``/``part1``/``part2``/``all`` and
+                 ``unet-gap`` commands
   csrc/          CUDA C++ kernels for Hopper (sm_90a); kernels/ builds them
 
 Entry points run on the GPU unless called with device="cpu".
 
 Float32 matrix products run in full fp32: TF32 is turned off here, once,
 for cuBLAS and cuDNN, matching the JAX package's Precision.HIGH on the
-Ridge fit, the STFT, the NMF updates and the GP Cholesky.
+Ridge fit, the STFT, the NMF updates and the GP Cholesky. The neural
+methods' fp32 convolutions follow it; their pipelines run the convs in
+bf16.
 """
 
 import torch

@@ -2,13 +2,17 @@
 
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --method ar
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --device cpu
+  python -m audio_inpainting_torch restore damaged.wav fixed.wav --method gan \
+      --original clean.wav
   python -m audio_inpainting_torch part0|part1|part2|all --input clip.wav
+  python -m audio_inpainting_torch unet-gap --input clip.wav --epochs 600
 
 ``restore`` reads the WAV through the int16 chain, restores it with the
 facade and writes an int16 WAV. ``part0``/``part1``/``part2``/``all`` run
 the scenario pipelines' legs ported so far, write the demo_assets set and
-print each leg's metrics. Everything runs on the GPU unless ``--device
-cpu`` is given.
+print each leg's metrics; ``unet-gap`` runs the U-Net overfit demo
+(pipelines/extras.py). Everything runs on the GPU unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -53,18 +57,28 @@ def build_parser() -> argparse.ArgumentParser:
                           "naturally quiet passages below it are treated as "
                           "damage and rewritten (reference semantics)")
     cmd.add_argument("--seed", type=int, default=0)
+    cmd.add_argument("--original", default=None,
+                     help="clean reference WAV (GAN method only)")
     _add_device(cmd)
 
     p0 = sub.add_parser("part0", help="0.05 s segment: GP, AR, AR+texture, NMF")
     _add_common(p0)
     _add_gp(p0)
-    p1 = sub.add_parser("part1", help="random frame dropouts: linear, AR, NMF")
+    p1 = sub.add_parser("part1", help="random frame dropouts: linear, AR, NMF, "
+                                      "U-Net")
     _add_common(p1)
-    p2 = sub.add_parser("part2", help="2 s hole: linear, AR, NMF")
+    p1.add_argument("--unet-epochs", type=int, default=400)
+    p2 = sub.add_parser("part2", help="2 s hole: linear, AR, NMF, GAN")
     _add_common(p2)
+    p2.add_argument("--gan-epochs", type=int, default=1500)
     pa = sub.add_parser("all", help="run all three scenario pipelines")
     _add_common(pa)
     _add_gp(pa)
+    pa.add_argument("--unet-epochs", type=int, default=400)
+    pa.add_argument("--gan-epochs", type=int, default=1500)
+    pu = sub.add_parser("unet-gap", help="main5_UNet_gap overfit demo variant")
+    _add_common(pu)
+    pu.add_argument("--epochs", type=int, default=600)
     return ap
 
 
@@ -90,12 +104,21 @@ def main(argv=None) -> int:
         from ..io import load_mono_normalized, save_wav_int16
 
         sr, damaged = load_mono_normalized(args.input_wav)
+        original = (load_mono_normalized(args.original)[1]
+                    if args.original else None)
         out = restore(damaged, sr, method=args.method,
                       threshold=args.threshold, seed=args.seed,
-                      device=args.device)
+                      original=original, device=args.device)
         save_wav_int16(out, sr, args.output_wav)
         print(f"restored {args.input_wav} -> {args.output_wav} "
               f"({args.method}, {args.device}, {time.time() - t_start:.1f}s)")
+        return 0
+    if args.cmd == "unet-gap":
+        from ..pipelines.extras import run_unet_gap
+
+        _emit("unet-gap", {"unet_gap": run_unet_gap(
+            args.input, args.assets_dir, epochs=args.epochs, seed=args.seed,
+            device=args.device)}, args.json)
         return 0
     from ..pipelines import run_part0, run_part1, run_part2
 
@@ -107,9 +130,11 @@ def main(argv=None) -> int:
                                  gp_cfg=gp_cfg, device=args.device), args.json)
     if args.cmd in ("part1", "all"):
         _emit("part1", run_part1(args.input, args.assets_dir, seed=args.seed,
+                                 unet_epochs=args.unet_epochs,
                                  device=args.device), args.json)
     if args.cmd in ("part2", "all"):
         _emit("part2", run_part2(args.input, args.assets_dir, seed=args.seed,
+                                 gan_epochs=args.gan_epochs,
                                  device=args.device), args.json)
     print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
     return 0

@@ -1,5 +1,5 @@
 from .masks import (random_dropout_mask, random_frame_mask, contiguous_gap_mask,
-                    center_gap_bounds)
+                    center_gap_bounds, training_stripes, frame_gap_mask_2d)
 from .detect import (
     silence_mask,
     find_main_gap,
@@ -14,6 +14,8 @@ __all__ = [
     "random_frame_mask",
     "contiguous_gap_mask",
     "center_gap_bounds",
+    "training_stripes",
+    "frame_gap_mask_2d",
     "silence_mask",
     "find_main_gap",
     "find_gaps",

@@ -88,3 +88,46 @@ def random_frame_mask(generator: torch.Generator, n_freq: int, n_frames: int,
     ends = (starts + lens).clamp_max(n_frames)
     keep = ~_stamp_intervals(starts, ends, n_frames)
     return keep.to(torch.float32)[None, :].repeat(n_freq, 1)
+
+
+def training_stripes(generator: torch.Generator, n_frames: int,
+                     intact) -> np.ndarray:
+    """Synthetic stripe keep-row (float32 (n_frames,), 1 = keep) for
+    self-supervised U-Net training on a blindly damaged clip.
+
+    Training against the detected damage would teach the net that holes
+    hold silence (the loss targets there are the damaged columns), so
+    stripes are hidden over the clip's intact columns instead and the real
+    damage stays out of the loss (reference main5_UNet_mask.py:111-127:
+    learn to fill columns from their context).
+
+    Stripe widths clamp for short clips, with at least one stripe (the
+    reference's count formula truncates to 0 under ~50 frames); under 4
+    frames the middle column alone is hidden. Up to 8 draws are made until
+    a stripe covers an intact column (a trainable cell: intact and hidden).
+    """
+    if n_frames < 4:
+        m = np.ones(n_frames, np.float32)
+        m[n_frames // 2] = 0.0
+        return m
+    mt = min(30, max(2, n_frames // 2))      # stripe width in [mn, mt)
+    mn = max(1, min(5, mt - 1))
+    intact = np.asarray(intact, bool)
+    for _ in range(8):
+        m = random_frame_mask(generator, 1, n_frames, min_time_mask=mn,
+                              max_time_mask=mt, min_segments=1)[0].cpu().numpy()
+        if ((m == 0) & intact).any() or not intact.any():
+            break
+    return m
+
+
+def frame_gap_mask_2d(n_freq: int, n_frames: int, start_frac: float = 0.4,
+                      end_frac: float = 0.6, device=None) -> torch.Tensor:
+    """Deterministic 2D STFT gap over frames [40%, 60%) (reference
+    main5_UNet_gap.py:98-102). Returns a float32 (n_freq, n_frames) tensor,
+    1 = keep, on ``device`` (the CPU when None)."""
+    gap_start = int(n_frames * start_frac)
+    gap_end = int(n_frames * end_frac)
+    col = torch.arange(n_frames, device=device)
+    keep = ~((col >= gap_start) & (col < gap_end))
+    return keep.to(torch.float32)[None, :].repeat(n_freq, 1)

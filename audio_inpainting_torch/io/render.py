@@ -6,7 +6,8 @@ axes off, tight layout (e.g. main1_gp.py:11-19). Those PNGs are part of the
 demo's file contract. matplotlib draws them where it is installed. Where
 it is not, a stdlib writer (``zlib`` + ``struct``) encodes the same
 log-power spectrogram through an inferno colormap, so every artifact is
-written either way.
+written either way. The U-Net's three-panel figure always goes through the
+stdlib writer (its PDF twin needs matplotlib).
 """
 
 from __future__ import annotations
@@ -38,6 +39,41 @@ def save_spectrogram_png(audio: np.ndarray, sr: int, path: str,
     plt.savefig(path, bbox_inches="tight", pad_inches=0)
     plt.close(fig)
     return path
+
+
+def unet_panels_viz(input_mag, pred_mag, target_mag, path: str) -> str:
+    """The U-Net figure: input, prediction and ground truth magnitudes side
+    by side (low frequencies at the bottom, each scaled to its own range,
+    as ``imshow`` does), written as one PNG by the stdlib writer, and as a
+    matplotlib PDF beside it where matplotlib exists."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    mags = [np.asarray(m, np.float32) for m in (input_mag, pred_mag, target_mag)]
+    gap = np.full((mags[0].shape[0], 4, 3), 255, np.uint8)
+    panels = [_colormap_inferno(_minmax01(m))[::-1] for m in mags]
+    _write_png(path, np.concatenate([panels[0], gap, panels[1], gap, panels[2]],
+                                    axis=1))
+    _panels_pdf(mags, os.path.splitext(path)[0] + ".pdf")
+    return path
+
+
+def _panels_pdf(mags, path: str) -> None:
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(15, 6))
+    for i, (title, m) in enumerate(zip(
+            ("Input (Randomly Masked)", "U-Net Prediction", "Ground Truth"), mags)):
+        plt.subplot(1, 3, i + 1)
+        plt.title(title)
+        plt.imshow(m, aspect="auto", origin="lower", cmap="inferno")
+        plt.axis("off")
+    plt.tight_layout()
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
 
 
 def _minmax01(a: np.ndarray) -> np.ndarray:

@@ -1,0 +1,242 @@
+"""Spectrogram U-Net / GAN models as torch ``nn.Module``s, NCHW.
+
+The port of audio_inpainting_tpu/models/unet.py (flax, NHWC):
+
+- SimpleUNet: 2-level U-Net; a block is 2x (Conv3x3 + ReLU); channels
+  1 -> 16 -> 32 -> 64 bottleneck; ConvTranspose(k2, s2) ups; skips
+  concatenated as [encoder, upsampled]; a 1x1 final conv.
+- GeneratorUNet: the same topology with BatchNorm + LeakyReLU(0.2) blocks
+  and a tanh output.
+- Discriminator: three strided 4x4 convs (16/32/64 channels, BatchNorm
+  after the 2nd and 3rd) and a 4x4 VALID head; returns logits.
+
+Inputs are (N, 1, F, T) with F and T multiples of 4 (two 2x pools).
+``dtype=torch.bfloat16`` runs the convs in bf16; parameters, BatchNorm, the
+final conv (the Discriminator's head) and everything after stay fp32, as
+in the JAX package.
+
+Submodules are named after the flax module tree, lower-cased: flax's
+``ConvBlock_3/Conv3x3_1/kernel`` is ``block3.conv1.weight`` here
+(``convert.flax_to_state_dict``). Parameters start as flax's
+``lecun_normal`` draws (``init_flax_style``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# BatchNorm running-average momentum of every BN of the models, flax's
+# convention: running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch
+BN_MOMENTUM = 0.9
+BN_EPS = 1e-5
+# flax's variance_scaling "truncated_normal": std of a unit normal cut at
+# +-2, by which the target std is divided
+_TRUNC_STD = 0.87962566103423978
+
+
+class Conv(nn.Module):
+    """A conv with fp32 parameters computed in ``dtype``.
+
+    weight is OIHW (flax's HWIO kernel, permuted). ``transpose=True`` makes
+    it a ConvTranspose with weight (Ci, Co, kh, kw) and stride = kernel
+    size: flax's ``nn.ConvTranspose(co, (2, 2), strides=(2, 2))``, whose
+    kernel torch takes spatially flipped (convert.py flips it)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32,
+                 transpose: bool = False):
+        super().__init__()
+        shape = (cin, cout, k, k) if transpose else (cout, cin, k, k)
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.stride, self.padding = stride, padding
+        self.dtype, self.transpose = dtype, transpose
+        # flax's fan_in: kh * kw * C_in for both forms
+        self.fan_in = cin * k * k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        if self.transpose:
+            return F.conv_transpose2d(x.to(dt), w, b, stride=self.stride)
+        return F.conv2d(x.to(dt), w, b, stride=self.stride, padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over NCHW channels, always in fp32.
+
+    Train mode normalizes with the batch statistics and moves the running
+    averages towards them by 1 - BN_MOMENTUM, with the *biased* batch
+    variance (nn.BatchNorm2d would take the unbiased one); eval mode
+    normalizes with the running averages."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, 1.0 - BN_MOMENTUM)
+            self.running_var.lerp_(var, 1.0 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            BN_EPS)
+
+
+class ConvBlock(nn.Module):
+    """2x (Conv3x3 + ReLU)."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv0 = Conv(cin, cout, 3, padding=1, dtype=dtype)
+        self.conv1 = Conv(cout, cout, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv1(F.relu(self.conv0(x))))
+
+
+class BNLeakyConvBlock(nn.Module):
+    """2x (Conv3x3 + BatchNorm + LeakyReLU(0.2)); the output is fp32."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv0 = Conv(cin, cout, 3, padding=1, dtype=dtype)
+        self.bn0 = BatchNorm(cout)
+        self.conv1 = Conv(cout, cout, 3, padding=1, dtype=dtype)
+        self.bn1 = BatchNorm(cout)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        x = F.leaky_relu(self.bn0(self.conv0(x), train), 0.2)
+        return F.leaky_relu(self.bn1(self.conv1(x), train), 0.2)
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 2)
+
+
+def _cat(skip: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """[encoder, upsampled] on channels, in the wider of the two dtypes."""
+    dt = torch.promote_types(skip.dtype, up.dtype)
+    return torch.cat([skip.to(dt), up.to(dt)], dim=1)
+
+
+class SimpleUNet(nn.Module):
+    """(N, 1, F, T) -> (N, 1, F, T); F, T multiples of 4."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.block0 = ConvBlock(1, 16, dtype)
+        self.block1 = ConvBlock(16, 32, dtype)
+        self.block2 = ConvBlock(32, 64, dtype)
+        self.up0 = Conv(64, 32, 2, stride=2, dtype=dtype, transpose=True)
+        self.block3 = ConvBlock(64, 32, dtype)
+        self.up1 = Conv(32, 16, 2, stride=2, dtype=dtype, transpose=True)
+        self.block4 = ConvBlock(32, 16, dtype)
+        self.conv0 = Conv(16, 1, 1)
+        init_flax_style(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        e1 = self.block0(x)
+        e2 = self.block1(_pool(e1))
+        b = self.block2(_pool(e2))
+        d2 = self.block3(_cat(e2, self.up0(b)))
+        d1 = self.block4(_cat(e1, self.up1(d2)))
+        return self.conv0(d1.to(torch.float32))
+
+
+class GeneratorUNet(nn.Module):
+    """GAN generator: the SimpleUNet topology with BatchNorm/LeakyReLU
+    blocks and a tanh output."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.block0 = BNLeakyConvBlock(1, 16, dtype)
+        self.block1 = BNLeakyConvBlock(16, 32, dtype)
+        self.block2 = BNLeakyConvBlock(32, 64, dtype)
+        self.up0 = Conv(64, 32, 2, stride=2, dtype=dtype, transpose=True)
+        self.block3 = BNLeakyConvBlock(64, 32, dtype)
+        self.up1 = Conv(32, 16, 2, stride=2, dtype=dtype, transpose=True)
+        self.block4 = BNLeakyConvBlock(32, 16, dtype)
+        self.conv0 = Conv(16, 1, 1)
+        init_flax_style(self, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        e1 = self.block0(x, train)
+        e2 = self.block1(_pool(e1), train)
+        b = self.block2(_pool(e2), train)
+        d2 = self.block3(_cat(e2, self.up0(b)), train)
+        d1 = self.block4(_cat(e1, self.up1(d2)), train)
+        return torch.tanh(self.conv0(d1))
+
+
+class Discriminator(nn.Module):
+    """Strided-conv PatchGAN discriminator. Returns LOGITS: the loss is BCE
+    from logits (the reference's Sigmoid + BCELoss survives saturation only
+    through torch's log clamp)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv0 = Conv(1, 16, 4, stride=2, padding=1, dtype=dtype)
+        self.conv1 = Conv(16, 32, 4, stride=2, padding=1, dtype=dtype)
+        self.bn0 = BatchNorm(32)
+        self.conv2 = Conv(32, 64, 4, stride=2, padding=1, dtype=dtype)
+        self.bn1 = BatchNorm(64)
+        self.conv3 = Conv(64, 1, 4)
+        init_flax_style(self, generator)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x = F.leaky_relu(self.conv0(x), 0.2)
+        x = F.leaky_relu(self.bn0(self.conv1(x), train), 0.2)
+        x = F.leaky_relu(self.bn1(self.conv2(x), train), 0.2)
+        return self.conv3(x)
+
+
+def patchgan_map_shape(f: int, t: int) -> tuple[int, int]:
+    """The Discriminator's logits map (rows, columns) for an (f, t) input;
+    a side <= 0 means the map is empty (the input is under the PatchGAN's
+    receptive floor)."""
+    for _ in range(3):                       # 4x4, stride 2, padding 1
+        f, t = (f - 2) // 2 + 1, (t - 2) // 2 + 1
+    return f - 3, t - 3                      # 4x4 VALID head
+
+
+@torch.no_grad()
+def init_flax_style(model: nn.Module,
+                    generator: torch.Generator | None = None) -> nn.Module:
+    """flax's initial values: conv kernels ``lecun_normal`` (a normal cut at
+    +-2 std, std = sqrt(1 / fan_in) / 0.8796, fan_in = kh * kw * C_in),
+    biases 0, BatchNorm scale 1 and bias 0, running mean 0 and variance 1.
+    Draws from ``generator`` (torch's default when None)."""
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            std = (1.0 / mod.fan_in) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    return model
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int = 4
+                    ) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Pad (F, T) with zeros up to multiples of ``multiple``; return the
+    pad amounts."""
+    f, t = x.shape
+    pf, pt = (-f) % multiple, (-t) % multiple
+    return F.pad(x, (0, pt, 0, pf)), (pf, pt)

@@ -16,13 +16,15 @@ the reference's inter-script WAV chaining):
    kernel.
 4. NMF: reload, per-column silent-fraction mask (0.01 / 80%), one-shot
    masked NMF (main4_NMF_mask.py).
-
-The U-Net leg and its spectrogram panels wait for a later slice
-(ROADMAP.md, Queue 1 item 12).
+5. U-Net: per-clip masked-MSE training (400 epochs, bf16 convs) on the
+   clip's normalized magnitude, composite, iSTFT with the original phase
+   (main5_UNet_mask.py:158-193); the input / prediction / ground truth
+   panels go to ``spectrogram_comparison.png``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -30,8 +32,9 @@ import torch
 
 from ..corrupt import random_frame_mask, silent_frame_columns
 from ..device import resolve_device
-from ..io import load_mono_normalized
+from ..io import load_mono_normalized, unet_panels_viz
 from ..methods import ARConfig, ar_restore_gaps, linear_interp_masked
+from ..methods.neural import UNetTrainConfig, unet_train_restore
 from ..methods.nmf import NMFConfig, nmf_inpaint_columns
 from ..methods.ola_eq import equalize_dropped_frames
 from ..metrics import lsd_db, snr_db
@@ -59,8 +62,9 @@ def _draw_frame_mask(seed: int, n_freq: int, n_frames: int, mask_ratio: float,
 
 
 def run_part1(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
-              mask_ratio: float = 0.3, device=None) -> dict:
-    """Run the corruption and the linear, AR and NMF legs on
+              unet_epochs: int = 400, mask_ratio: float = 0.3,
+              device=None) -> dict:
+    """Run the corruption and the linear, AR, NMF and U-Net legs on
     ``input_file``; write their artifacts under ``assets_dir`` and return
     their metrics. Runs on ``device`` (cuda by default)."""
     dev = resolve_device(device)
@@ -72,8 +76,9 @@ def run_part1(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
     t0 = time.time()
     mag, phase = magphase(stft(torch.tensor(data, device=dev), _CFG))
     mag_max = mag.max()
+    mag_norm = mag / mag_max
     mask = _draw_frame_mask(seed, mag.shape[0], mag.shape[1], mask_ratio, dev)
-    input_mag = mag / mag_max * mask
+    input_mag = mag_norm * mask
     corrupted = istft(polar(input_mag * mag_max, phase), _CFG, n).cpu().numpy()
     _metrics("damaged", data, corrupted, t0, results, dev)
     write_artifacts(corrupted, sr, assets_dir, "part1", "damaged")
@@ -120,4 +125,17 @@ def run_part1(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
     _metrics("nmf", data, nmf, t0, results, dev)
     results["nmf"]["bad_cols"] = int(bad.sum())
     write_artifacts(nmf, sr, assets_dir, "part1", "nmf")
+
+    # --- 5. U-Net self-supervised inpainting ----------------------------
+    t0 = time.time()
+    final_norm, pred, losses = unet_train_restore(
+        mag_norm, mask, UNetTrainConfig(epochs=unet_epochs, masked_loss=True,
+                                        bf16=True), seed)
+    unet = istft(polar(final_norm * mag_max, phase), _CFG, n).cpu().numpy()
+    _metrics("unet", data, unet, t0, results, dev)
+    results["unet"]["final_loss"] = float(losses[-1])
+    write_artifacts(unet, sr, assets_dir, "part1", "unet", clip=0.99)
+    unet_panels_viz(input_mag.cpu().numpy(), pred.cpu().numpy(),
+                    mag_norm.cpu().numpy(),
+                    os.path.join(assets_dir, "part1", "spectrogram_comparison.png"))
     return results

@@ -1,9 +1,9 @@
 """Part 2: one 2-second hole in the middle of the 10 s clip.
 
 The port's slice of audio_inpainting_tpu/pipelines/part2.py: the corruption,
-the linear, AR and NMF legs (reference generate_part2_data.py,
-main3_AR_text_gap.py, main4_NMF_gap.py). The GAN and diffusion legs wait
-for later slices (ROADMAP.md, Queue 1).
+the linear, AR, NMF and GAN legs (reference generate_part2_data.py,
+main3_AR_text_gap.py, main4_NMF_gap.py, main_gan_gap.py). The diffusion leg
+waits for a later slice (ROADMAP.md, Queue 1 item 14).
 
 1. corrupt: zero the centered 2 s window; write damaged + linear baseline +
    original.
@@ -13,6 +13,10 @@ for later slices (ROADMAP.md, Queue 1).
    order-100 texture AR over 5000-sample contexts, chunked 128 samples
    per step.
 3. NMF: per-column silent-fraction mask (1e-4 / 90%), one-shot masked NMF.
+4. GAN: min-max [-1, 1] normalized magnitude, mask = norm > -0.95, 1500
+   adversarial epochs against the ground-truth clip's spectrogram, read out
+   through the gap-scoped weight EMA, with one retrain on the mode-collapse
+   signature.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..corrupt import center_gap_bounds, find_gaps, silent_frame_columns
 from ..device import resolve_device
 from ..io import load_mono_normalized
 from ..methods import ARConfig, ar_restore_gap, linear_fill_gap
+from ..methods.neural import GANTrainConfig, gan_train_restore
 from ..methods.nmf import NMFConfig, nmf_inpaint_columns
 from ..metrics import local_snr_db, lsd_db, snr_db
 from ..ops import istft, magphase, polar, stft, torch_stft_config
@@ -53,10 +58,10 @@ def detect_main_gap(damaged: np.ndarray, threshold: float = 1e-4,
 
 
 def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
-              device=None) -> dict:
-    """Run the linear, AR and NMF legs on ``input_file``; write their artifacts
-    under ``assets_dir`` and return their metrics. Runs on ``device``
-    (cuda by default)."""
+              gan_epochs: int = 1500, device=None) -> dict:
+    """Run the linear, AR, NMF and GAN legs on ``input_file``; write their
+    artifacts under ``assets_dir`` and return their metrics. Runs on
+    ``device`` (cuda by default)."""
     dev = resolve_device(device)
     sr, data = load_mono_normalized(input_file)
     n_target = 10 * sr
@@ -102,4 +107,26 @@ def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
     nmf = istft(polar(out_mag, phase_d), _CFG, n).cpu().numpy()
     _metrics("nmf", data, nmf, gs, ge, t0, results, dev)
     write_artifacts(nmf, sr, assets_dir, "part2", "nmf")
+
+    # --- 4. GAN ------------------------------------------------------------
+    t0 = time.time()
+    mag_min, mag_max = mag_d.min(), mag_d.max()
+    norm = (mag_d - mag_min) / (mag_max - mag_min) * 2.0 - 1.0
+    keep = (norm > -0.95).to(torch.float32)          # main_gan_gap.py:97
+    real_mag, _ = magphase(stft(torch.tensor(data, device=dev), _CFG))
+    real_norm = (real_mag - mag_min) / (mag_max - mag_min) * 2.0 - 1.0
+    # the JAX package's production readout: the gap-scoped weight EMA, and
+    # one retrain on the hole-L1 mode-collapse signature, which is
+    # calibrated at convergence and so armed only from 1500 epochs on
+    final_norm, _, attempts = gan_train_restore(
+        norm, real_norm, keep,
+        GANTrainConfig(epochs=gan_epochs, bf16=True, ema_decay=0.99,
+                       ema_scope="gap",
+                       retry_l1=0.04 if gan_epochs >= 1500 else 0.0),
+        seed)
+    final_mag = (final_norm + 1.0) / 2.0 * (mag_max - mag_min) + mag_min
+    gan = istft(polar(final_mag, phase_d), _CFG, n).cpu().numpy()
+    _metrics("gan", data, gan, gs, ge, t0, results, dev)
+    results["gan"]["attempts"] = attempts
+    write_artifacts(gan, sr, assets_dir, "part2", "gan")
     return results

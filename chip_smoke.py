@@ -6,10 +6,12 @@
 It builds the port's CUDA kernel from csrc/, holds it against its plain
 torch version at the shapes the restore path gives it, times both, then
 drives the port's paths: the masked NMF at Part 1's and Part 0's shapes
-(GPU against CPU), the ``restore`` facade (ar and nmf on a 10 s, 44.1 kHz
-clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
-pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one JSON
-line; any failed check raises. The last three lines are the kernel table,
+(GPU against CPU), the U-Net and GAN training loops (GPU against CPU on a
+cropped spectrogram, then epochs timed and profiled at Part 1's full
+(513, 1723)), the ``restore`` facade (ar, nmf, unet and gan on a 10 s,
+44.1 kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the
+Part 1 pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one
+JSON line; any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -40,6 +42,21 @@ NMF_RTOL_OF_PEAK = 1e-5
 GP_MARGIN_DB = 3.0
 # pipeline metrics of the GPU run against the CPU run with the same draws
 DB_TOL = 0.05
+# the neural loops, GPU against CPU from the same init, fp32 with TF32 off:
+# the CPU tests' bounds against the JAX package (tests/test_torch_neural.py).
+# cuDNN's convolutions sum in another order than the CPU's (the backward
+# not deterministically); the GAN's eval-mode readout reads the
+# pre-BatchNorm conv biases, whose gradient is zero up to rounding and
+# whose Adam steps are therefore rounding noise scaled up to lr
+NEURAL_LOSS_RTOL = 1e-4
+UNET_COMPOSITE_TOL = 1e-4      # of the composite's peak
+GAN_COMPOSITE_TOL = 1e-3
+# the facade's neural legs: unet at its default 400 epochs; gan cut from
+# its default 1500 to 300 epochs (~7 s of fp32 epochs instead of ~34 s),
+# so the smoke stays near 300 s: Part 2's GAN leg already runs 1500
+# epochs, twice when its retry fires
+FACADE_UNET_EPOCHS = 400
+FACADE_GAN_EPOCHS = 300
 
 
 def emit(obj) -> None:
@@ -112,6 +129,12 @@ def agreement_snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
     ref, got = ref.double(), got.double()
     err = float(((ref - got) ** 2).sum())
     return float(10 * np.log10(float((ref ** 2).sum()) / max(err, 1e-300)))
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| as a share of max |want|, on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
 
 
 def bound_ms(B: int, p: int, steps: int) -> tuple[float, str]:
@@ -286,7 +309,8 @@ def phase_facade(dev, tmp: Path):
           "restored": {"snr_db": float(snr_db(clean, out)),
                        "lsd_db": float(lsd_db(clean, out))},
           "nmf": facade_nmf(clean, damaged),
-          "gp": facade_gp(clean)})
+          "gp": facade_gp(clean),
+          **facade_neural(clean, damaged)})
     return launches
 
 
@@ -309,6 +333,31 @@ def facade_nmf(clean, damaged) -> dict:
         raise AssertionError(f"GPU vs CPU nmf facade: agreement {agree} dB < 60 dB")
     return {"wall_s": wall_s, "gpu_vs_cpu_agreement_snr_db": agree,
             "snr_db": float(snr_db(clean, gpu)), "lsd_db": float(lsd_db(clean, gpu))}
+
+
+def facade_neural(clean, damaged) -> dict:
+    """restore(method="unet") and restore(method="gan", original=clean) on
+    the 10 s clip, once each, on the GPU; the gan run's epochs are cut
+    (FACADE_GAN_EPOCHS), as its JSON says."""
+    from audio_inpainting_torch import restore
+    from audio_inpainting_torch.metrics import lsd_db, snr_db
+
+    default = {"unet": 400, "gan": 1500}
+    out = {}
+    for method, kw in (("unet", {"epochs": FACADE_UNET_EPOCHS}),
+                       ("gan", {"epochs": FACADE_GAN_EPOCHS, "original": clean})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore(damaged, SR, method=method, **kw)
+        wall_s = time.perf_counter() - t0
+        if got.shape != damaged.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{method} facade output has the wrong shape "
+                                 "or is not finite")
+        out[method] = {"epochs": kw["epochs"], "default_epochs": default[method],
+                       "wall_s": wall_s,
+                       "snr_db": float(snr_db(clean, got)),
+                       "lsd_db": float(lsd_db(clean, got))}
+    return out
 
 
 def facade_gp(clean) -> dict:
@@ -353,9 +402,6 @@ def phase_nmf(dev):
                                                     nmf_inpaint_iterative)
     from audio_inpainting_torch.ops import (magphase, scipy_stft_config, stft,
                                             torch_stft_config)
-
-    def rel_err(got, want):
-        return float((got.cpu() - want).abs().max() / want.abs().max())
 
     clip = torch.as_tensor(synth_music_clip(2, SR, 10.0))
     mag, _ = magphase(stft(clip, torch_stft_config(1024, 256)))
@@ -411,6 +457,98 @@ def phase_nmf(dev):
           "the same on both devices", "one_shot": one_shot, "iterative": iterative})
 
 
+def part1_spectrogram():
+    """Part 1's normalized STFT magnitude (513, 1723) of
+    synth_music_clip(2, ...) and a seeded frame mask, on the CPU."""
+    from audio_inpainting_torch.corrupt import random_frame_mask, synth_music_clip
+    from audio_inpainting_torch.ops import magphase, stft, torch_stft_config
+
+    clip = torch.as_tensor(synth_music_clip(2, SR, 10.0))
+    mag, _ = magphase(stft(clip, torch_stft_config(1024, 256)))
+    mask = random_frame_mask(torch.Generator().manual_seed(0), *mag.shape)
+    return mag / mag.max(), mask
+
+
+def gan_inputs(mag_norm, mask):
+    """Part 2's form: [-1, 1] magnitudes, the hidden cells at the floor."""
+    real = mag_norm * 2.0 - 1.0
+    return real * mask - (1.0 - mask), real, mask
+
+
+def phase_neural(dev):
+    """The U-Net and GAN training loops. GPU against CPU: 5 fp32 epochs
+    from the same init (the draws come from a seeded CPU generator) on
+    Part 1's magnitude cropped to 256 frames. Then at full size, (513,
+    1723) padded to (516, 1728): ms per epoch by CUDA events, and one
+    profiled stretch of epochs, for the U-Net in fp32 and bf16 and the GAN
+    in bf16."""
+    from audio_inpainting_torch.methods import neural
+
+    mag_norm, mask = part1_spectrogram()
+    m, k = mag_norm[:, :256].contiguous(), mask[:, :256].contiguous()
+    ucfg = neural.UNetTrainConfig(epochs=5, masked_loss=True)
+    g_final, _, g_loss = neural.unet_train_restore(m, k, ucfg, 0, device=dev)
+    c_final, _, c_loss = neural.unet_train_restore(m, k, ucfg, 0, device="cpu")
+    gcfg = neural.GANTrainConfig(epochs=5, ema_decay=0.99)
+    gg_final, (gg_d, gg_g), _ = neural.gan_train_restore(*gan_inputs(m, k), gcfg, 0,
+                                                         device=dev)
+    cg_final, (cg_d, cg_g), _ = neural.gan_train_restore(*gan_inputs(m, k), gcfg, 0,
+                                                         device="cpu")
+    vs_cpu = {"shape": list(m.shape), "epochs": 5, "dtype": "fp32, TF32 off",
+              "tolerance": f"losses within {NEURAL_LOSS_RTOL:g} relative; "
+                           f"composites within {UNET_COMPOSITE_TOL:g} (U-Net) and "
+                           f"{GAN_COMPOSITE_TOL:g} (GAN) of their peak",
+              "unet_loss_rel_err": rel_err(g_loss, c_loss),
+              "unet_composite_err": rel_err(g_final, c_final),
+              "gan_d_loss_rel_err": rel_err(gg_d, cg_d),
+              "gan_g_loss_rel_err": rel_err(gg_g, cg_g),
+              "gan_composite_err": rel_err(gg_final, cg_final)}
+    for key, tol in (("unet_loss_rel_err", NEURAL_LOSS_RTOL),
+                     ("gan_d_loss_rel_err", NEURAL_LOSS_RTOL),
+                     ("gan_g_loss_rel_err", NEURAL_LOSS_RTOL),
+                     ("unet_composite_err", UNET_COMPOSITE_TOL),
+                     ("gan_composite_err", GAN_COMPOSITE_TOL)):
+        if not vs_cpu[key] <= tol:
+            raise AssertionError(f"neural GPU vs CPU: {key} {vs_cpu[key]} > {tol}")
+
+    full, fmask = mag_norm.to(dev), mask.to(dev)
+    timed = {}
+    for name, make in (
+            ("unet_fp32", lambda: neural.UNetTrainer(
+                full, fmask, neural.UNetTrainConfig(bf16=False), 0)),
+            ("unet_bf16", lambda: neural.UNetTrainer(
+                full, fmask, neural.UNetTrainConfig(bf16=True), 0)),
+            ("gan_bf16", lambda: neural.GANTrainer(
+                *gan_inputs(full, fmask), neural.GANTrainConfig(
+                    bf16=True, ema_decay=0.99, ema_scope="gap"), 0))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make()
+        losses = [trainer.epoch() for _ in range(3)]           # warm
+        ms = cuda_ms(trainer.epoch, calls=20, rounds=3, warmup=0)
+        n_prof = 10
+        prof = device_profile(lambda: [trainer.epoch() for _ in range(n_prof)],
+                              top=10, kernel="conv")
+        losses.append(trainer.epoch())
+        flat = [v for x in losses for v in (x if isinstance(x, tuple) else (x,))]
+        if not bool(torch.isfinite(torch.stack(flat)).all()):
+            raise AssertionError(f"neural {name}: a loss is not finite")
+        timed[name] = {
+            "padded": list(trainer.inp.shape[2:]), "ms_per_epoch": ms,
+            "device_calls_per_epoch": prof["device_calls"] / n_prof,
+            "device_busy_ms_per_epoch": prof["device_busy_ms"] / n_prof,
+            "wall_ms_per_epoch_profiled": prof["wall_ms"] / n_prof,
+            # the profiler stretches the wall it measures: the idle share
+            # of the profiled epochs and of the unprofiled epoch time
+            "device_idle_share": prof["device_idle_share"],
+            "device_idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / n_prof / ms,
+            "top": prof["top"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del trainer
+    emit({"phase": "neural", "gpu_vs_cpu": vs_cpu,
+          "full_size": {"shape": list(mag_norm.shape), **timed}})
+
+
 def check_artifacts(assets: str, part: str, methods, sr: int):
     from audio_inpainting_torch.io import read_wav
     from audio_inpainting_torch.pipelines import asset_path
@@ -419,9 +557,13 @@ def check_artifacts(assets: str, part: str, methods, sr: int):
         wav_sr, data = read_wav(asset_path(assets, part, m))
         if wav_sr != sr or data.dtype != np.int16 or not len(data):
             raise AssertionError(f"{part}/{m}: bad WAV ({wav_sr} Hz, {data.dtype})")
-        with open(asset_path(assets, part, m, "image"), "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError(f"{part}/{m}: image is not a PNG")
+        check_png(asset_path(assets, part, m, "image"))
+
+
+def check_png(path: str) -> None:
+    with open(path, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"{path}: not a PNG")
 
 
 def finite_metrics(name: str, res: dict) -> None:
@@ -447,19 +589,21 @@ def phase_part1(dev, tmp: Path):
     save_wav_int16(synth_music_clip(2, SR, 10.0), SR, clip)
     assets = str(tmp / "assets")
     t0 = time.perf_counter()
-    run_part1(clip, assets, seed=0)                           # cold
+    run_part1(clip, assets, seed=0, unet_epochs=1)            # cold
     cold_s = time.perf_counter() - t0
 
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
-    res = run_part1(clip, assets, seed=0)
+    res = run_part1(clip, assets, seed=0)                     # 400 U-Net epochs
     wall_s = time.perf_counter() - t0
     launches = ar_scan.LAUNCHES
     passes = 2
     if res["n_gaps"] == 0 or launches != passes:
         raise AssertionError(f"Part 1's AR leg launched the kernel {launches} "
                              f"times over {res['n_gaps']} gaps, not {passes}")
-    check_artifacts(assets, "part1", ["damaged", "original", "linear", "ar", "nmf"], SR)
+    check_artifacts(assets, "part1",
+                    ["damaged", "original", "linear", "ar", "nmf", "unet"], SR)
+    check_png(str(Path(assets) / "part1" / "spectrogram_comparison.png"))
     finite_metrics("part1", res)
 
     # the AR leg alone, on its own inputs, under the profiler
@@ -469,10 +613,11 @@ def phase_part1(dev, tmp: Path):
                    context_len=1000, passes=passes)
     ar_profile = device_profile(lambda: ar_restore_gaps(eq, gaps, cfg, 1))
     kernel_row = part1_kernel_row(dev, eq, gaps, cfg)
-    whole_profile = device_profile(lambda: run_part1(clip, str(tmp / "prof"), seed=0))
+    whole_profile = device_profile(lambda: run_part1(clip, str(tmp / "prof"), seed=0,
+                                                     unet_epochs=1))
 
     t0 = time.perf_counter()
-    cpu = run_part1(clip, str(tmp / "cpu"), seed=0, device="cpu")
+    cpu = run_part1(clip, str(tmp / "cpu"), seed=0, unet_epochs=1, device="cpu")
     cpu_s = time.perf_counter() - t0
     deltas = {leg: {k: res[leg][k] - cpu[leg][k] for k in ("snr_db", "lsd_db")}
               for leg in ("damaged", "linear", "nmf")}
@@ -483,7 +628,8 @@ def phase_part1(dev, tmp: Path):
     emit({"phase": "part1", "samples": len(damaged), "n_gaps": res["n_gaps"],
           "B": 2 * res["n_gaps"], "max_len": res["ar_max_len"],
           "launches": launches, "cold_s": cold_s, "wall_s": wall_s,
-          "legs": {leg: res[leg] for leg in ("damaged", "linear", "ar", "nmf")},
+          "unet_epochs": 400, "cold_profiled_cpu_unet_epochs": 1,
+          "legs": {leg: res[leg] for leg in ("damaged", "linear", "ar", "nmf", "unet")},
           "cpu_wall_s": cpu_s, "gpu_minus_cpu_db": deltas,
           "cpu_ar": cpu["ar"], "kernel": kernel_row, "ar_profile": ar_profile,
           "profile": whole_profile})
@@ -534,14 +680,15 @@ def phase_pipelines(dev, tmp: Path):
     assets = str(tmp / "assets")
 
     t0 = time.perf_counter()
-    run_part2(clip, assets, seed=0)                          # cold
+    run_part2(clip, assets, seed=0, gan_epochs=10)           # cold
     cold_s = time.perf_counter() - t0
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
-    part2 = run_part2(clip, assets, seed=0)
+    part2 = run_part2(clip, assets, seed=0)      # 1500 GAN epochs, retry armed
     part2_s = time.perf_counter() - t0
     part2_launches = ar_scan.LAUNCHES
-    check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar", "nmf"], SR)
+    check_artifacts(assets, "part2",
+                    ["damaged", "original", "linear", "ar", "nmf", "gan"], SR)
 
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -556,7 +703,9 @@ def phase_pipelines(dev, tmp: Path):
     for name, res in (("part2", part2), ("part0", part0)):
         finite_metrics(name, res)
     emit({"phase": "pipelines",
-          "part2": {**part2, "cold_s": cold_s, "wall_s": part2_s,
+          "part2": {**part2, "cold_s": cold_s, "cold_gan_epochs": 10,
+                    "wall_s": part2_s, "gan_epochs": 1500,
+                    "gan_retry_fired": part2["gan"]["attempts"] == 2,
                     "launches": part2_launches},
           "part0": {**part0, "wall_s": part0_s, "launches": part0_launches}})
     return {"part2": part2_launches, "part0": part0_launches}
@@ -570,6 +719,7 @@ def main() -> int:
     phase_env(dev)
     rows = phase_kernel(dev)
     phase_nmf(dev)
+    phase_neural(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_facade(dev, Path(tmp))
         part1_launches, part1_row = phase_part1(dev, Path(tmp))

@@ -16,11 +16,19 @@ import torch
 
 import audio_inpainting_tpu.api as japi
 import audio_inpainting_tpu.methods.linear as jlinear
+import audio_inpainting_tpu.methods.neural as jneural
 import audio_inpainting_tpu.pipelines.part0 as jpart0
 import audio_inpainting_tpu.pipelines.part2 as jpart2
+from audio_inpainting_tpu.corrupt import training_stripes as jax_training_stripes
+from audio_inpainting_tpu.models.packed_unet import (PackedDiscriminator,
+                                                     PackedGeneratorUNet,
+                                                     PackedSimpleUNet)
+import audio_inpainting_torch.corrupt as tcorrupt
 import audio_inpainting_torch.methods.ar as tar
+import audio_inpainting_torch.methods.neural as tneural
 from audio_inpainting_torch import api as tapi
 from audio_inpainting_torch.cli.main import main as tmain
+from audio_inpainting_torch.convert import flax_to_state_dict
 from audio_inpainting_torch.corrupt import find_gaps, random_dropout_mask, synth_music_clip
 from audio_inpainting_torch.io import load_mono_normalized, read_wav, save_wav_int16
 from audio_inpainting_torch.io import render
@@ -102,11 +110,97 @@ def test_restore_matches_jax(method, jax_noise):
 def test_restore_needs_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros(1000, np.float32)
-    for method in ("ar", "nmf", "gp"):
+    for method in ("ar", "nmf", "gp", "unet", "gan"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            tapi.restore(x, 8000, method)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tapi.restore(x, 8000, "unet", device="cpu")
+            tapi.restore(x, 8000, method, original=x)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tapi.restore(x, 8000, "diffusion", device="cpu")
+
+
+def _jax_init(kind, seed, attempt, shape):
+    """The JAX package's U-Net/GAN init (neural.py:272, :520-522), fp32, as
+    state dicts, through its own jitted init."""
+    key = jax.random.PRNGKey(seed)
+    if attempt:
+        key = jax.random.fold_in(key, attempt)
+    x = jnp.zeros((1, *shape, 1), jnp.float32)
+    if kind == "unet":
+        return [flax_to_state_dict(jneural._jit_init(PackedSimpleUNet(), key, x)["params"])]
+    kg, kd = jax.random.split(key)
+    g = jneural._jit_init_train(PackedGeneratorUNet(), kg, x)
+    d = jneural._jit_init_train(PackedDiscriminator(), kd, x)
+    return [flax_to_state_dict(g["params"], g["batch_stats"]),
+            flax_to_state_dict(d["params"], d["batch_stats"])]
+
+
+def _jax_stripes(generator, n_frames, intact):
+    """The JAX facade's stripes for seed 0 (api.py:135)."""
+    return np.asarray(jax_training_stripes(jax.random.PRNGKey(0), n_frames, intact))
+
+
+HOLES = [(6000, 9000), (15000, 15500)]
+# The neural fills take the phase of the damaged STFT, which inside a hole
+# is the angle of rounding noise and differs between the two packages'
+# STFTs; so the facades are compared outside the frames that reach into a
+# hole (sample by sample) and by the fill's level inside the holes.
+OUTSIDE_AGREEMENT_DB = 60.0
+FILL_LEVEL_DB = 0.3
+
+
+def _holed_clip(seed=3, sr=8000, seconds=2.5):
+    x = synth_music_clip(seed, sr, seconds)
+    damaged = x.copy()
+    for s, e in HOLES:
+        damaged[s:e] = 0.0
+    return x, damaged
+
+
+def _assert_fill_matches(want, got):
+    hole = np.zeros(len(want), bool)
+    for s, e in HOLES:
+        hole[s:e] = True
+    near = np.convolve(hole, np.ones(1025), "same") > 0      # 1024-point frames
+    assert _agreement_snr(want[~near], got[~near]) >= OUTSIDE_AGREEMENT_DB
+    rms_db = 10 * np.log10(np.mean(got[hole].astype(np.float64) ** 2)
+                           / np.mean(want[hole].astype(np.float64) ** 2))
+    assert abs(rms_db) <= FILL_LEVEL_DB, rms_db
+
+
+def test_facade_unet_matches_jax(monkeypatch):
+    """Blind damage, synthetic stripes over the intact columns, 5 fp32
+    epochs, with the JAX stripes and init injected. Measured: 129.7 dB
+    outside the holes' frames, the fill's level within 0.06 dB (the
+    composites agree to 1.1e-5 of their peak)."""
+    monkeypatch.setattr(tneural, "_draw_init", _jax_init)
+    monkeypatch.setattr(tcorrupt, "training_stripes", _jax_stripes)
+    _, damaged = _holed_clip()
+    want = np.asarray(japi.restore(damaged, 8000, "unet", epochs=5))
+    got = tapi.restore(damaged, 8000, "unet", epochs=5, device="cpu")
+    assert got.dtype == np.float32 and got.shape == damaged.shape
+    _assert_fill_matches(want, got)
+
+
+def test_facade_gan_needs_the_original():
+    _, damaged = _holed_clip()
+    with pytest.raises(ValueError, match="original"):
+        tapi.restore(damaged, 8000, "gan", device="cpu")
+
+
+# the brightness scan, and explicit gaps, which beat it
+@pytest.mark.parametrize("gaps", [None, HOLES])
+def test_facade_gan_matches_jax(gaps, monkeypatch):
+    """3 fp32 epochs with the JAX init injected. Measured: 77.8 dB
+    (brightness scan: dark cells outside the holes are filled too) and
+    129.5 dB (explicit gaps) outside the holes' frames, the fill's level
+    within 0.03 and 0.18 dB."""
+    monkeypatch.setattr(tneural, "_draw_init", _jax_init)
+    clean, damaged = _holed_clip()
+    want = np.asarray(japi.restore(damaged, 8000, "gan", gaps=gaps, original=clean,
+                                   epochs=3))
+    got = tapi.restore(damaged, 8000, "gan", gaps=gaps, original=clean, epochs=3,
+                       device="cpu")
+    assert got.shape == damaged.shape and np.isfinite(got).all()
+    _assert_fill_matches(want, got)
 
 
 def _stub_jax_heavy_legs(monkeypatch):
@@ -149,7 +243,7 @@ def test_run_part2_matches_jax(tmp_path, monkeypatch, jax_noise):
     sr = 8000
     clip = str(tmp_path / "clip.wav")
     save_wav_int16(synth_music_clip(1, sr, 3.0, "chords"), sr, clip)
-    got = run_part2(clip, str(tmp_path / "torch"), seed=0, device="cpu")
+    got = run_part2(clip, str(tmp_path / "torch"), seed=0, gan_epochs=1, device="cpu")
     want = jpart2.run_part2(clip, str(tmp_path / "jax"), seed=0, gan_epochs=1)
     assert got["gap"] == want["gap"] and got["detected_gap"] == want["detected_gap"]
     _assert_metrics_close(got, want, ["linear", "ar"])
@@ -191,6 +285,20 @@ def test_spectrogram_png_without_matplotlib(tmp_path, monkeypatch):
     idat_len = int.from_bytes(raw[33:37], "big")
     pixels = zlib.decompress(raw[41:41 + idat_len])
     assert len(pixels) == h * (1 + 3 * w)
+
+
+def test_unet_panels_png_without_matplotlib(tmp_path, monkeypatch):
+    """The U-Net figure on the GPU machine: three panels in one PNG from
+    the stdlib writer, no PDF."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)   # import fails
+    rng = np.random.RandomState(0)
+    mags = [rng.rand(20, 30).astype(np.float32) for _ in range(3)]
+    path = render.unet_panels_viz(*mags, str(tmp_path / "p" / "cmp.png"))
+    raw = open(path, "rb").read()
+    assert raw[:8] == PNG_SIGNATURE
+    w, h = int.from_bytes(raw[16:20], "big"), int.from_bytes(raw[20:24], "big")
+    assert (h, w) == (20, 3 * 30 + 2 * 4)
+    assert not (tmp_path / "p" / "cmp.pdf").exists()
 
 
 def _port_sources():
