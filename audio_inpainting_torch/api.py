@@ -4,9 +4,8 @@
     fixed = restore(damaged, sr, method="ar")                  # on the GPU
     fixed = restore(damaged, sr, method="ar", device="cpu")
 
-The port's counterpart of audio_inpainting_tpu/api.py. It carries the
-linear, ar, nmf, gp, unet and gan methods; diffusion raises
-NotImplementedError naming the ROADMAP.md item that ports it. Blind damage
+The port's counterpart of audio_inpainting_tpu/api.py, with all of its
+methods: linear, ar, nmf, gp, unet, gan and diffusion. Blind damage
 detection (threshold scans) runs when ``gaps`` / ``mask`` are not
 supplied. GP is only sensible on short segments (the reference restricts
 it to 0.05 s windows).
@@ -25,9 +24,6 @@ from .device import resolve_device
 AR_DEFAULTS = {"order": 30, "alpha": 0.5, "texture": True,
                "context_len": 1000, "passes": 2}
 
-# methods of the JAX facade that later slices port (ROADMAP.md, Queue 1)
-_NOT_PORTED = {"diffusion": 14}
-
 
 def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
             threshold: float = 1e-4, seed: int = 0, original=None,
@@ -39,7 +35,10 @@ def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
     alternative to gaps. original: the clean clip, used only by the gan
     method, which trains against it (main_gan_gap.py:103-108). device: where
     the work runs, cuda by default; RuntimeError when no GPU is present and
-    none is named.
+    none is named. Other keywords configure the method (ARConfig,
+    NMFConfig, GPConfig, UNetTrainConfig, GANTrainConfig, DiffusionConfig);
+    diffusion also takes ``checkpoint_dir``, trained weights that replace
+    its per-clip training.
     Returns float32 numpy on the host.
     """
     from .corrupt import find_gaps, mask_to_bad_columns, silent_frame_columns
@@ -87,10 +86,18 @@ def restore(damaged, sr: int, method: str = "ar", *, gaps=None, mask=None,
                             seed, device=dev)
         return out
 
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to PyTorch yet "
-            f"(ROADMAP.md, Queue 1 item {_NOT_PORTED[method]})")
+    if method == "diffusion":
+        from .methods.diffusion import DiffusionConfig, diffusion_restore_audio
+
+        # per-clip training unless a checkpoint (e.g. methods.diffusion.
+        # PRIOR_DIR) is named; explicit damage spans override the codec's
+        # near-black image scan
+        ckpt = cfg_kwargs.pop("checkpoint_dir", None)
+        sample_mask = _mask() if gaps is not None or mask is not None else None
+        return diffusion_restore_audio(damaged, sr, DiffusionConfig(**cfg_kwargs),
+                                       key=seed, checkpoint_dir=ckpt,
+                                       sample_mask=sample_mask, device=dev)
+
     if method not in ("nmf", "unet", "gan"):
         raise ValueError(f"unknown method {method!r}")
     if method == "gan" and original is None:

@@ -9,16 +9,18 @@
 
 ``restore`` reads the WAV through the int16 chain, restores it with the
 facade and writes an int16 WAV. ``part0``/``part1``/``part2``/``all`` run
-the scenario pipelines' legs ported so far, write the demo_assets set and
-print each leg's metrics; ``unet-gap`` runs the U-Net overfit demo
-(pipelines/extras.py). Everything runs on the GPU unless ``--device cpu``
-is given.
+the scenario pipelines, write the demo_assets set and print each leg's
+metrics; Part 2's diffusion leg samples from the committed corpus prior
+unless ``--diffusion-checkpoint`` names another (``none``: train per
+clip). ``unet-gap`` runs the U-Net overfit demo (pipelines/extras.py).
+Everything runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -40,6 +42,31 @@ def _add_common(p):
 def _add_gp(p):
     p.add_argument("--gp-restarts", type=int, default=5)
     p.add_argument("--gp-steps", type=int, default=20)
+
+
+def _add_diffusion(p):
+    p.add_argument("--diffusion-steps", type=int, default=1500,
+                   help="per-clip DDPM training steps (when no checkpoint)")
+    p.add_argument("--diffusion-checkpoint", default=None,
+                   help="save_params directory of DDPM weights (default: the "
+                        "committed corpus prior; 'none': train per clip)")
+
+
+def _diffusion_checkpoint(arg: str | None) -> str | None:
+    """The Part 2 diffusion leg's weights: the committed corpus prior by
+    default, as the JAX package's CLI does; None ('none') trains per clip.
+    A named directory must exist."""
+    from ..methods.diffusion import PRIOR_DIR
+
+    if arg is not None and arg.lower() == "none":
+        return None
+    path = PRIOR_DIR if arg is None else arg
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"diffusion checkpoint {path!r} does not exist")
+    if arg is None:
+        print(f"diffusion: using corpus prior at {os.path.normpath(path)} "
+              "(--diffusion-checkpoint none to force per-clip)", file=sys.stderr)
+    return path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,14 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
                                       "U-Net")
     _add_common(p1)
     p1.add_argument("--unet-epochs", type=int, default=400)
-    p2 = sub.add_parser("part2", help="2 s hole: linear, AR, NMF, GAN")
+    p2 = sub.add_parser("part2", help="2 s hole: linear, AR, NMF, GAN, diffusion")
     _add_common(p2)
     p2.add_argument("--gan-epochs", type=int, default=1500)
+    _add_diffusion(p2)
     pa = sub.add_parser("all", help="run all three scenario pipelines")
     _add_common(pa)
     _add_gp(pa)
     pa.add_argument("--unet-epochs", type=int, default=400)
     pa.add_argument("--gan-epochs", type=int, default=1500)
+    _add_diffusion(pa)
     pu = sub.add_parser("unet-gap", help="main5_UNet_gap overfit demo variant")
     _add_common(pu)
     pu.add_argument("--epochs", type=int, default=600)
@@ -122,6 +151,9 @@ def main(argv=None) -> int:
         return 0
     from ..pipelines import run_part0, run_part1, run_part2
 
+    if args.cmd in ("part2", "all"):
+        # before any leg runs: a named checkpoint that is missing fails fast
+        dckpt = _diffusion_checkpoint(args.diffusion_checkpoint)
     if args.cmd in ("part0", "all"):
         from ..methods.gp import GPConfig
 
@@ -133,9 +165,12 @@ def main(argv=None) -> int:
                                  unet_epochs=args.unet_epochs,
                                  device=args.device), args.json)
     if args.cmd in ("part2", "all"):
-        _emit("part2", run_part2(args.input, args.assets_dir, seed=args.seed,
-                                 gan_epochs=args.gan_epochs,
-                                 device=args.device), args.json)
+        from ..methods.diffusion import DiffusionConfig
+
+        _emit("part2", run_part2(
+            args.input, args.assets_dir, seed=args.seed, gan_epochs=args.gan_epochs,
+            diffusion_cfg=DiffusionConfig(train_steps=args.diffusion_steps),
+            diffusion_checkpoint=dckpt, device=args.device), args.json)
     print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
     return 0
 

@@ -7,8 +7,8 @@ port's extrapolation and paste can run on exactly the JAX fit and noise.
 
 The spectrogram models' flax trees (``params`` and ``batch_stats`` of
 SimpleUNet, GeneratorUNet, Discriminator, or their packed twins, which
-share the tree) become the port's ``state_dict``s by
-``flax_to_state_dict``.
+share the tree, and the ``params`` of the diffusion DiffusionUNet) become
+the port's ``state_dict``s by ``flax_to_state_dict``.
 """
 
 from __future__ import annotations
@@ -38,23 +38,28 @@ def eps_from_numpy(arrays, device=None) -> list[torch.Tensor]:
             for a in arrays]
 
 
-# flax module kind -> the port's submodule name stem (models/unet.py)
+# flax module kind -> the port's submodule name stem (models/unet.py,
+# models/diffusion_unet.py)
 _MODULES = {"ConvBlock": "block", "BNLeakyConvBlock": "block",
             "ConvTranspose": "up", "Conv": "conv", "Conv3x3": "conv",
-            "BatchNorm": "bn"}
+            "BatchNorm": "bn", "ResBlock": "res", "_FastConv3x3": "fconv",
+            "Dense": "dense", "GroupNorm": "gn"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
 
 
 def flax_to_state_dict(params, batch_stats=None) -> dict[str, torch.Tensor]:
     """A flax model tree (nested dicts of arrays) as the port's CPU
-    ``state_dict``, for SimpleUNet, GeneratorUNet or Discriminator.
+    ``state_dict``, for SimpleUNet, GeneratorUNet, Discriminator or
+    DiffusionUNet.
 
     Names: ``BNLeakyConvBlock_3/BatchNorm_1/var`` becomes
-    ``block3.bn1.running_var``. Layouts: a conv kernel (kh, kw, Ci, Co)
+    ``block3.bn1.running_var``, ``ResBlock_4/_FastConv3x3_1/kernel``
+    ``res4.fconv1.weight``. Layouts: a conv kernel (kh, kw, Ci, Co)
     becomes OIHW; a ConvTranspose kernel becomes (Ci, Co, kh, kw) flipped
     in both spatial axes, since flax's ConvTranspose does not flip its
-    kernel and torch's conv_transpose2d does.
+    kernel and torch's conv_transpose2d does; a Dense kernel (in, out)
+    becomes nn.Linear's (out, in). GroupNorm's scale is its weight.
     """
     out: dict[str, torch.Tensor] = {}
 
@@ -65,7 +70,9 @@ def flax_to_state_dict(params, batch_stats=None) -> dict[str, torch.Tensor]:
                 walk(val, path + [_MODULES[kind] + idx])
                 continue
             a = torch.tensor(np.asarray(val, np.float32))
-            if key == "kernel":
+            if key == "kernel" and a.ndim == 2:
+                a = a.T
+            elif key == "kernel":
                 a = (a.permute(2, 3, 0, 1).flip(2, 3) if path[-1].startswith("up")
                      else a.permute(3, 2, 0, 1))
             out[".".join(path + [_LEAVES[key]])] = a.contiguous()

@@ -1,0 +1,371 @@
+"""Diffusion spectrogram inpainting (the reference's Riffusion role).
+
+The port of audio_inpainting_tpu/methods/diffusion.py's native DDPM
+engine. The reference pipes a log-spectrogram image through riffusion's
+Stable Diffusion inpainting pipeline (main_diffusion_gap.py); this engine
+keeps the reference's exact spectrogram <-> image codec and inpainting
+contract:
+
+- codec: power spectrogram (n_fft=2048, hop=512, power=2) -> log-dB
+  ``20*log10(clamp(s, 1e-5)) - 20`` clamped at -100 -> min-max uint8 image,
+  flipud (main_diffusion_gap.py:22-41); mask = pixels < 10; Griffin-Lim
+  (power=1) back to audio. The image functions are host numpy, copied.
+- engine: the DiffusionUNet (models/diffusion_unet.py), either trained per
+  clip on random patches of the clip's own image (eager Adam steps) or
+  loaded from a checkpoint such as the committed corpus prior
+  (``PRIOR_DIR``), then DDIM (eta = 0) with RePaint composites over the
+  masked region at full resolution.
+
+Random draws come from seeded CPU generators behind ``_draw_init``,
+``_draw_train`` and ``_draw_sample``, so every device sees the same
+numbers; the tests replace them with the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..corrupt import mask_to_bad_columns
+from ..device import resolve_device
+from ..models.diffusion_unet import DiffusionUNet
+from ..ops.griffin_lim import griffin_lim
+from ..ops.stft import stft, torch_stft_config
+from ..utils.checkpoint import load_params, save_params
+from .neural import _adam
+
+# the 48-clip corpus prior, converted from the JAX package's Orbax
+# checkpoint (its MANIFEST.json names the source and the command)
+PRIOR_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "weights", "diffusion_prior")
+
+# ------------------------------------------------------------- codec -------
+
+
+def wav_to_logspec(x: torch.Tensor) -> torch.Tensor:
+    """(n,) waveform -> log-dB spectrogram (1025, frames), on x's device;
+    reference :22-27."""
+    s = stft(x.to(torch.float32), torch_stft_config(2048, 512)).abs() ** 2
+    ls = 20.0 * torch.log10(s.clamp_min(1e-5)) - 20.0
+    return ls.clamp_min(-100.0)
+
+
+def logspec_to_image(logspec: np.ndarray) -> tuple[np.ndarray, float, float]:
+    """Min-max -> uint8, flipud. Returns (img (H, W) uint8, smin, smax)."""
+    logspec = np.asarray(logspec)
+    smin, smax = float(logspec.min()), float(logspec.max())
+    data = (logspec - smin) / max(smax - smin, 1e-12)
+    return np.flipud((data * 255.0).astype(np.uint8)), smin, smax
+
+
+def image_to_linear_spec(img: np.ndarray, smin: float, smax: float) -> np.ndarray:
+    """uint8 image -> linear magnitude spectrogram (reference :36-41)."""
+    data = np.flipud(np.asarray(img, np.float32)).copy() / 255.0
+    logspec = data * (smax - smin) + smin
+    return np.power(10.0, (logspec + 20.0) / 20.0)
+
+
+def mask_from_image(img: np.ndarray, threshold: int = 10) -> np.ndarray:
+    """255 where the image is near-black (damaged), else 0 (reference :52-55)."""
+    return np.where(np.asarray(img) < threshold, 255, 0).astype(np.uint8)
+
+
+# ----------------------------------------------------- DDPM machinery ------
+
+T = 1000
+# corpus pretraining moves to the next image after this many steps (the
+# JAX package's default steps per device program)
+STEPS_PER_IMAGE = 250
+_RUNS = {"clip": 0, "corpus": 1}
+
+
+def _schedule() -> torch.Tensor:
+    """Cumulative products of alpha, (T,) float32 on the CPU: betas
+    linspace(1e-4, 0.02)."""
+    betas = torch.linspace(1e-4, 0.02, T, dtype=torch.float32)
+    return torch.cumprod(1.0 - betas, 0)
+
+
+def _alpha_roots() -> tuple[torch.Tensor, torch.Tensor]:
+    """sqrt(acp) and sqrt(1 - acp), float32 on the CPU."""
+    acp = _schedule()
+    return acp.sqrt(), (1.0 - acp).sqrt()
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """The JAX package's DiffusionConfig without ``scan_chunk``, its
+    training steps per device program; here every step is eager."""
+
+    train_steps: int = 1500
+    batch: int = 8
+    patch: int = 128
+    lr: float = 2e-4
+    sample_steps: int = 50   # DDIM steps (reference num_inference_steps=50)
+    base_channels: int = 32
+    # Fill-energy calibration: scale the Griffin-Lim'd gap fill so its power
+    # is this fraction of the surrounding audio's. A hallucinated fill is
+    # uncorrelated with the truth, so its local SNR is -10*log10(1 + a) at
+    # energy ratio a; the JAX package's sweep with the corpus prior chose
+    # 0.12 (LSD flat over 0.08-0.5, waveform SNR rising as the ratio
+    # falls). None disables calibration.
+    fill_energy_ratio: float | None = 0.12
+
+
+def _generator(*entropy: int) -> torch.Generator:
+    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def _draw_init(seed: int, run: str, base: int) -> dict[str, torch.Tensor]:
+    """Initial DiffusionUNet weights (CPU state dict) of a per-clip
+    (``run="clip"``) or corpus (``"corpus"``) training run."""
+    return DiffusionUNet(base, generator=_generator(seed, _RUNS[run], 0)).state_dict()
+
+
+def _draw_train(seed: int, run: str, step: int, cfg: DiffusionConfig,
+                shape: tuple[int, int]):
+    """Training step ``step``'s draws, CPU tensors: patch origins ys, xs
+    (B,) uniform in [0, H - P) and [0, W - P) (0 where the image is not
+    larger than the patch), times t (B,) in [0, T), noise eps (B, 1, P, P)."""
+    gen = _generator(seed, _RUNS[run], 1, step)
+    (h, w), p, b = shape, cfg.patch, cfg.batch
+    return (torch.randint(0, max(h - p, 1), (b,), generator=gen),
+            torch.randint(0, max(w - p, 1), (b,), generator=gen),
+            torch.randint(0, T, (b,), generator=gen),
+            torch.randn((b, 1, p, p), generator=gen))
+
+
+def _draw_sample(seed: int, shape: tuple[int, ...], n_steps: int):
+    """The sampler's draws, CPU tensors of ``shape``: the initial x, then
+    the re-noising of the known region at each of the ``n_steps`` steps."""
+    gen = _generator(seed, 2)
+    for _ in range(n_steps + 1):
+        yield torch.randn(shape, generator=gen)
+
+
+def _to_device(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    # pinned (the caching host allocator reuses the blocks) and
+    # asynchronous: the host draws the next step while the device works
+    if device.type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a.to(device)
+
+
+def new_model(state: dict[str, torch.Tensor], base: int, device) -> DiffusionUNet:
+    """A DiffusionUNet of width ``base`` holding ``state`` on ``device``."""
+    model = DiffusionUNet(base, generator=torch.Generator())
+    model.load_state_dict(state)
+    return model.to(device)
+
+
+def train_steps(model: DiffusionUNet, opt: torch.optim.Optimizer,
+                img: torch.Tensor, keep: torch.Tensor, cfg: DiffusionConfig,
+                seed: int, run: str, steps: range) -> torch.Tensor:
+    """Adam steps ``steps`` of DDPM training on random patches of one image.
+
+    img: (H, W) in [-1, 1]; keep: (H, W), 1 = trustworthy pixel (the loss
+    is masked so the model never learns the damaged hole as data). Patch
+    indices past the image edge are clamped, as the JAX package's gather
+    clamps them. Returns the losses (len(steps),) on img's device.
+    """
+    dev = img.device
+    h, w = img.shape
+    sqrt_a, sqrt_1ma = (r.to(dev) for r in _alpha_roots())
+    span = torch.arange(cfg.patch, device=dev)
+    losses = []
+    for step in steps:
+        ys, xs, t, eps = (_to_device(a, dev) for a in _draw_train(seed, run, step, cfg,
+                                                                   (h, w)))
+        rows = (ys[:, None] + span).clamp(max=h - 1)[:, :, None]
+        cols = (xs[:, None] + span).clamp(max=w - 1)[:, None, :]
+        x0, wgt = img[rows, cols][:, None], keep[rows, cols][:, None]
+        xt = sqrt_a[t][:, None, None, None] * x0 + sqrt_1ma[t][:, None, None, None] * eps
+        pred = model(xt, t.to(torch.float32))
+        loss = (wgt * (pred - eps) ** 2).sum() / wgt.sum().clamp_min(1.0)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return torch.stack(losses) if losses else torch.zeros(0, device=dev)
+
+
+def _adam_for(model: DiffusionUNet, cfg: DiffusionConfig) -> torch.optim.Adam:
+    # optax.adam(lr)'s defaults: b1 0.9, b2 0.999, eps 1e-8
+    return _adam(model, cfg.lr, (0.9, 0.999), next(model.parameters()).device)
+
+
+@torch.no_grad()
+def ddim_repaint(model: DiffusionUNet, img: torch.Tensor, keep: torch.Tensor,
+                 seed: int, cfg: DiffusionConfig) -> torch.Tensor:
+    """DDIM (eta = 0) sampling with RePaint composites: at every step the
+    known region is re-noised from the data and the hole comes from the
+    model; x0 is clipped to [-1, 1]; a final composite keeps the known
+    pixels verbatim. img, keep: (H, W) -> (H, W) in [-1, 1]."""
+    dev = img.device
+    sqrt_a, sqrt_1ma = (r.tolist() for r in _alpha_roots())
+    n = cfg.sample_steps
+    ts = [(n - i) * (T // n) - 1 for i in range(n)]          # T-1 .. ~0
+    x0, keep4 = img[None, None], keep[None, None]
+    hole = 1.0 - keep4
+    draws = _draw_sample(seed, tuple(x0.shape), n)
+    x = _to_device(next(draws), dev)
+    for i, t in enumerate(ts):
+        noise = _to_device(next(draws), dev)
+        x = keep4 * (sqrt_a[t] * x0 + sqrt_1ma[t] * noise) + hole * x
+        eps = model(x, torch.full((1,), float(t), device=dev))
+        x0_pred = ((x - sqrt_1ma[t] * eps) / sqrt_a[t]).clamp(-1.0, 1.0)
+        if i + 1 < n:
+            x = sqrt_a[ts[i + 1]] * x0_pred + sqrt_1ma[ts[i + 1]] * eps
+        else:                                   # to t = 0: a_next = 1
+            x = x0_pred
+    return (keep4 * x0 + hole * x)[0, 0]
+
+
+def train_spectrogram_ddpm(images_u8, cfg: DiffusionConfig = DiffusionConfig(),
+                           key: int = 0, checkpoint_dir: str | None = None,
+                           masks_u8=None, device=None) -> dict[str, torch.Tensor]:
+    """Pretrain the spectrogram DDPM on a corpus of log-spec images.
+
+    images_u8: (H, W) uint8 spectrogram images, each at least cfg.patch in
+    both axes (heights may differ); training moves to the next image every
+    STEPS_PER_IMAGE steps. masks_u8 (optional, one per image, 255 =
+    damaged) keeps damaged pixels out of the loss. Returns the trained
+    state dict, on ``device`` (cuda by default), and writes it with
+    ``save_params`` when ``checkpoint_dir`` is given.
+    """
+    dev = resolve_device(device)
+    model = new_model(_draw_init(key, "corpus", cfg.base_channels),
+                      cfg.base_channels, dev)
+    opt = _adam_for(model, cfg)
+    imgs = [torch.tensor(np.asarray(im), dtype=torch.float32, device=dev) / 127.5 - 1.0
+            for im in images_u8]
+    keeps = ([torch.ones_like(im) for im in imgs] if masks_u8 is None else
+             [torch.tensor(np.asarray(m) == 0, dtype=torch.float32, device=dev)
+              for m in masks_u8])
+    done = i = 0
+    while done < cfg.train_steps:
+        n = min(STEPS_PER_IMAGE, cfg.train_steps - done)
+        train_steps(model, opt, imgs[i % len(imgs)], keeps[i % len(imgs)], cfg, key,
+                    "corpus", range(done, done + n))
+        done += n
+        i += 1
+    state = model.state_dict()
+    if checkpoint_dir:
+        save_params(state, checkpoint_dir,
+                    {"trainer": "audio_inpainting_torch.methods.diffusion."
+                                "train_spectrogram_ddpm",
+                     "images": len(imgs), "train_steps": cfg.train_steps,
+                     "base_channels": cfg.base_channels, "key": key})
+    return state
+
+
+def diffusion_inpaint_image(img_u8: np.ndarray, mask_u8: np.ndarray,
+                            cfg: DiffusionConfig = DiffusionConfig(),
+                            key: int = 0, params=None, device=None) -> np.ndarray:
+    """Inpaint the masked region of a uint8 grayscale spectrogram image.
+
+    mask_u8: 255 = damaged. The image is padded to multiples of 4 with
+    pixel 0 (-1) and keep 0. Trains the per-clip DDPM on the undamaged
+    pixels unless ``params`` (a DiffusionUNet state dict) are given.
+    Returns the uint8 image. Runs on ``device`` (cuda by default).
+    """
+    dev = resolve_device(device)
+    h, w = img_u8.shape
+    ph, pw = (-h) % 4, (-w) % 4
+    img = torch.tensor(np.pad(img_u8, ((0, ph), (0, pw))), dtype=torch.float32,
+                       device=dev) / 127.5 - 1.0
+    keep = torch.tensor(np.pad(mask_u8 == 0, ((0, ph), (0, pw)), constant_values=False),
+                        dtype=torch.float32, device=dev)
+    if params is None:
+        model = new_model(_draw_init(key, "clip", cfg.base_channels),
+                          cfg.base_channels, dev)
+        train_steps(model, _adam_for(model, cfg), img, keep, cfg, key, "clip",
+                    range(cfg.train_steps))
+    else:
+        model = new_model(params, cfg.base_channels, dev)
+    out = ddim_repaint(model, img, keep, key, cfg)
+    out_u8 = np.rint(((out + 1.0) * 127.5).clamp(0, 255).cpu().numpy()).astype(np.uint8)
+    return out_u8[:h, :w]
+
+
+def diffusion_restore_audio(damaged: np.ndarray, sr: int,
+                            cfg: DiffusionConfig = DiffusionConfig(),
+                            key: int = 0, composite: bool = True,
+                            checkpoint_dir: str | None = None,
+                            params=None, sample_mask=None, device=None) -> np.ndarray:
+    """The reference pipeline: wav -> log-spec image -> inpaint the masked
+    (near-black) region -> linear spectrogram -> Griffin-Lim -> waveform.
+
+    ``composite=True`` (default) crossfades the Griffin-Lim reconstruction
+    into the original waveform so only the damaged span is replaced;
+    ``composite=False`` returns the whole Griffin-Lim waveform, as the
+    reference does (main_diffusion_gap.py:72-74).
+
+    ``params`` (a DiffusionUNet state dict) or ``checkpoint_dir`` (a
+    ``save_params`` directory, such as PRIOR_DIR) skips the per-clip
+    training. ``sample_mask`` (optional per-sample bool array, True =
+    valid): explicit damage spans override the image's near-black scan;
+    the hole is the image columns the mask maps to
+    (``corrupt.mask_to_bad_columns`` at hop 512). Runs on ``device`` (cuda
+    by default); returns float32 numpy.
+    """
+    dev = resolve_device(device)
+    damaged = np.asarray(damaged, np.float32)
+    if params is None and checkpoint_dir is not None:
+        params = load_params(checkpoint_dir, dev)
+    logspec = wav_to_logspec(torch.tensor(damaged, device=dev)).cpu().numpy()
+    img, smin, smax = logspec_to_image(logspec)
+    if sample_mask is not None:
+        mask = np.zeros_like(img)
+        mask[:, mask_to_bad_columns(sample_mask, img.shape[1], 512, device=dev)] = 255
+    else:
+        mask = mask_from_image(img)
+    inpainted = diffusion_inpaint_image(img, mask, cfg, key, params=params, device=dev)
+    linear = image_to_linear_spec(inpainted, smin, smax)
+    out = griffin_lim(linear, n_fft=2048, hop=512, n_iter=32, length=len(damaged),
+                      power=1.0, seed=key, device=dev).cpu().numpy()
+    if cfg.fill_energy_ratio is not None:
+        out = _calibrate_fill_energy(damaged, out, mask, cfg.fill_energy_ratio)
+    if not composite:
+        return out
+    return _composite_time_domain(damaged, out, mask)
+
+
+def _calibrate_fill_energy(damaged: np.ndarray, out: np.ndarray,
+                           mask: np.ndarray, ratio: float) -> np.ndarray:
+    """Scale ``out`` so the fill's power in the damaged span equals
+    ``ratio`` x the surrounding audio's power (see DiffusionConfig)."""
+    bad_cols = np.flatnonzero((mask == 255).mean(axis=0) > 0.95)
+    if bad_cols.size == 0:
+        return out
+    gs = int(bad_cols.min()) * 512
+    ge = min(len(out), (int(bad_cols.max()) + 1) * 512)
+    span = ge - gs
+    ctx = np.concatenate([damaged[max(0, gs - span):gs],
+                          damaged[ge:ge + span]])
+    e_ctx = float(np.mean(ctx ** 2)) if ctx.size else 0.0
+    e_fill = float(np.mean(out[gs:ge] ** 2))
+    # a np.float32 gain: a np.float64 one would upcast the waveform
+    return out * np.float32(np.sqrt(ratio * e_ctx / max(e_fill, 1e-12)))
+
+
+def _composite_time_domain(damaged: np.ndarray, out: np.ndarray,
+                           mask: np.ndarray) -> np.ndarray:
+    """Replace only fully-damaged image columns (hop=512 frames) in the
+    waveform, with a 1024-sample crossfade at each boundary."""
+    bad_cols = np.flatnonzero((mask == 255).mean(axis=0) > 0.95)
+    if bad_cols.size == 0:
+        return damaged
+    weight = np.zeros(len(damaged), np.float32)
+    for c in bad_cols:  # bad col spans samples [c*512-1024, c*512+1024) centered
+        lo = max(0, c * 512 - 1024)
+        hi = min(len(damaged), c * 512 + 1024)
+        weight[lo:hi] = 1.0
+    xfade = 1024
+    kernel = np.ones(xfade, np.float32) / xfade
+    weight = np.convolve(weight, kernel, mode="same")
+    return np.asarray(damaged * (1.0 - weight) + out * weight, np.float32)

@@ -1,3 +1,4 @@
+from .diffusion_unet import DiffusionUNet, ResBlock, timestep_embedding
 from .unet import (BN_MOMENTUM, BatchNorm, Discriminator, GeneratorUNet,
                    SimpleUNet, init_flax_style, pad_to_multiple,
                    patchgan_map_shape)
@@ -5,10 +6,13 @@ from .unet import (BN_MOMENTUM, BatchNorm, Discriminator, GeneratorUNet,
 __all__ = [
     "BN_MOMENTUM",
     "BatchNorm",
+    "DiffusionUNet",
     "Discriminator",
     "GeneratorUNet",
+    "ResBlock",
     "SimpleUNet",
     "init_flax_style",
     "pad_to_multiple",
     "patchgan_map_shape",
+    "timestep_embedding",
 ]

@@ -215,21 +215,25 @@ def patchgan_map_shape(f: int, t: int) -> tuple[int, int]:
 @torch.no_grad()
 def init_flax_style(model: nn.Module,
                     generator: torch.Generator | None = None) -> nn.Module:
-    """flax's initial values: conv kernels ``lecun_normal`` (a normal cut at
-    +-2 std, std = sqrt(1 / fan_in) / 0.8796, fan_in = kh * kw * C_in),
-    biases 0, BatchNorm scale 1 and bias 0, running mean 0 and variance 1.
-    Draws from ``generator`` (torch's default when None)."""
+    """flax's initial values: conv and dense kernels ``lecun_normal`` (a
+    normal cut at +-2 std, std = sqrt(1 / fan_in) / 0.8796, fan_in =
+    kh * kw * C_in for a conv, in_features for a dense layer), biases 0,
+    BatchNorm and GroupNorm scale 1 and bias 0, running mean 0 and variance
+    1. Draws from ``generator`` (torch's default when None)."""
     for mod in model.modules():
-        if isinstance(mod, Conv):
-            std = (1.0 / mod.fan_in) ** 0.5 / _TRUNC_STD
+        fan_in = (mod.fan_in if isinstance(mod, Conv)
+                  else mod.in_features if isinstance(mod, nn.Linear) else None)
+        if fan_in is not None:
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             mod.bias.zero_()
-        elif isinstance(mod, BatchNorm):
+        elif isinstance(mod, (BatchNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            mod.running_mean.zero_()
-            mod.running_var.fill_(1.0)
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
     return model
 
 

@@ -74,6 +74,19 @@ def _pad_zeros(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return x
 
 
+def _pad_reflect_repeated(x: torch.Tensor, half: int) -> torch.Tensor:
+    """``half`` samples of reflection at both ends, reflecting again where
+    the pad is longer than the signal (numpy's and jnp.pad's "reflect";
+    torch's reflect pad refuses a pad that is not shorter than the
+    signal)."""
+    n = x.shape[0]
+    idx = torch.arange(-half, n + half, device=x.device)
+    if n == 1:
+        return x[torch.zeros_like(idx)]
+    r = idx.remainder(2 * (n - 1))
+    return x[torch.where(r < n, r, 2 * (n - 1) - r)]
+
+
 def _check_pad_mode(cfg: StftConfig) -> None:
     if cfg.pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"unknown pad_mode {cfg.pad_mode!r}")
@@ -84,7 +97,11 @@ def stft(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     _check_pad_mode(cfg)
     x = x.to(torch.float32)
     win = hann_window(cfg.n_fft, x.device)
-    if cfg.pad_mode == "reflect":
+    if cfg.pad_mode == "reflect" and x.shape[0] <= cfg.n_fft // 2:
+        # a signal no longer than the centre pad (Griffin-Lim on a few frames)
+        z = torch.stft(_pad_reflect_repeated(x, cfg.n_fft // 2), cfg.n_fft,
+                       cfg.hop, window=win, center=False, return_complex=True)
+    elif cfg.pad_mode == "reflect":
         z = torch.stft(x, cfg.n_fft, cfg.hop, window=win, center=True,
                        pad_mode="reflect", return_complex=True)
     else:

@@ -1,9 +1,8 @@
 """Part 2: one 2-second hole in the middle of the 10 s clip.
 
-The port's slice of audio_inpainting_tpu/pipelines/part2.py: the corruption,
-the linear, AR, NMF and GAN legs (reference generate_part2_data.py,
-main3_AR_text_gap.py, main4_NMF_gap.py, main_gan_gap.py). The diffusion leg
-waits for a later slice (ROADMAP.md, Queue 1 item 14).
+The port of audio_inpainting_tpu/pipelines/part2.py (reference
+generate_part2_data.py, main3_AR_text_gap.py, main4_NMF_gap.py,
+main_gan_gap.py, main_diffusion_gap.py):
 
 1. corrupt: zero the centered 2 s window; write damaged + linear baseline +
    original.
@@ -17,6 +16,9 @@ waits for a later slice (ROADMAP.md, Queue 1 item 14).
    adversarial epochs against the ground-truth clip's spectrogram, read out
    through the gap-scoped weight EMA, with one retrain on the mode-collapse
    signature.
+5. Diffusion: log-spec image codec, DDPM (per-clip training unless
+   pretrained weights are given), DDIM RePaint, Griffin-Lim, fill-energy
+   calibration and the time-domain composite.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..corrupt import center_gap_bounds, find_gaps, silent_frame_columns
 from ..device import resolve_device
 from ..io import load_mono_normalized
 from ..methods import ARConfig, ar_restore_gap, linear_fill_gap
+from ..methods.diffusion import DiffusionConfig, diffusion_restore_audio
 from ..methods.neural import GANTrainConfig, gan_train_restore
 from ..methods.nmf import NMFConfig, nmf_inpaint_columns
 from ..metrics import local_snr_db, lsd_db, snr_db
@@ -58,10 +61,15 @@ def detect_main_gap(damaged: np.ndarray, threshold: float = 1e-4,
 
 
 def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
-              gan_epochs: int = 1500, device=None) -> dict:
-    """Run the linear, AR, NMF and GAN legs on ``input_file``; write their
-    artifacts under ``assets_dir`` and return their metrics. Runs on
-    ``device`` (cuda by default)."""
+              gan_epochs: int = 1500,
+              diffusion_cfg: DiffusionConfig | None = None,
+              diffusion_checkpoint: str | None = None,
+              diffusion_params=None, device=None) -> dict:
+    """Run the linear, AR, NMF, GAN and diffusion legs on ``input_file``;
+    write their artifacts under ``assets_dir`` and return their metrics.
+    The diffusion leg trains per clip unless ``diffusion_params`` (a
+    DiffusionUNet state dict) or ``diffusion_checkpoint`` (a ``save_params``
+    directory) is given. Runs on ``device`` (cuda by default)."""
     dev = resolve_device(device)
     sr, data = load_mono_normalized(input_file)
     n_target = 10 * sr
@@ -129,4 +137,15 @@ def run_part2(input_file: str, assets_dir: str = "demo_assets", seed: int = 0,
     _metrics("gan", data, gan, gs, ge, t0, results, dev)
     results["gan"]["attempts"] = attempts
     write_artifacts(gan, sr, assets_dir, "part2", "gan")
+
+    # --- 5. diffusion ------------------------------------------------------
+    t0 = time.time()
+    diff = diffusion_restore_audio(damaged, sr, diffusion_cfg or DiffusionConfig(),
+                                   key=seed, checkpoint_dir=diffusion_checkpoint,
+                                   params=diffusion_params, device=dev)
+    diff = np.clip(diff, -1.0, 1.0)
+    _metrics("diffusion", data, diff, gs, ge, t0, results, dev)
+    results["diffusion"]["pretrained"] = (diffusion_params is not None
+                                          or diffusion_checkpoint is not None)
+    write_artifacts(diff, sr, assets_dir, "part2", "diffusion")
     return results

@@ -8,10 +8,13 @@ torch version at the shapes the restore path gives it, times both, then
 drives the port's paths: the masked NMF at Part 1's and Part 0's shapes
 (GPU against CPU), the U-Net and GAN training loops (GPU against CPU on a
 cropped spectrogram, then epochs timed and profiled at Part 1's full
-(513, 1723)), the ``restore`` facade (ar, nmf, unet and gan on a 10 s,
-44.1 kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the
-Part 1 pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one
-JSON line; any failed check raises. The last three lines are the kernel table,
+(513, 1723)), the diffusion method (the committed prior; Griffin-Lim at
+Part 2's full (1025, 862), the U-Net forward, training and DDIM steps GPU
+against CPU on a crop, then timed and profiled at the full (1028, 864)),
+the ``restore`` facade (ar, nmf, unet, gan and diffusion on a 10 s, 44.1
+kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
+pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one JSON
+line; any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -20,6 +23,7 @@ a checkout of the repository. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -57,6 +61,15 @@ GAN_COMPOSITE_TOL = 1e-3
 # epochs, twice when its retry fires
 FACADE_UNET_EPOCHS = 400
 FACADE_GAN_EPOCHS = 300
+# the diffusion method, GPU against CPU from the same draws: the CPU
+# tests' bounds against the JAX package (tests/test_torch_diffusion.py)
+GL_AGREEMENT_DB = 80.0
+DIFF_FORWARD_RTOL = 1e-5       # of the output's peak
+DIFF_LOSS_RTOL = 1e-5
+DIFF_PARAM_ATOL = 2e-5
+DDIM_ATOL = 5e-5
+# the facade's diffusion: per-clip training at its default step count
+FACADE_DIFFUSION_STEPS = 1500
 
 
 def emit(obj) -> None:
@@ -261,6 +274,211 @@ def damaged_clip(tmp: Path):
     return clean, load_mono_normalized(path)[1]
 
 
+def diffusion_image():
+    """Part 2's damaged clip as the diffusion codec sees it, on the CPU:
+    (damaged (441000,), image (1025, 862) uint8, mask (255 = damaged),
+    smin, smax)."""
+    from audio_inpainting_torch.corrupt import center_gap_bounds, synth_music_clip
+    from audio_inpainting_torch.methods import diffusion as diff
+
+    damaged = synth_music_clip(1, SR, 10.0)
+    gs, ge = center_gap_bounds(len(damaged), SR)
+    damaged[gs:ge] = 0.0
+    img, smin, smax = diff.logspec_to_image(
+        diff.wav_to_logspec(torch.tensor(damaged)).numpy())
+    return damaged, img, diff.mask_from_image(img), smin, smax
+
+
+def unet_macs(model, shape) -> int:
+    """Multiply-accumulates of one forward of ``model`` at input ``shape``,
+    from the shapes its convolutions and dense layers see (forward hooks);
+    GroupNorm, SiLU and the adds are not counted."""
+    from torch import nn
+
+    from audio_inpainting_torch.models.unet import Conv
+
+    total = 0
+
+    def hook(mod, args, out):
+        nonlocal total
+        if isinstance(mod, Conv):            # weight (Co, Ci, k, k); transposed (Ci, Co, k, k)
+            taps = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
+            total += (args[0].numel() if mod.transpose else out.numel()) * taps
+        else:
+            total += out.numel() * mod.in_features
+
+    dev = next(model.parameters()).device
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(shape, device=dev), torch.zeros(shape[0], device=dev))
+    for h in handles:
+        h.remove()
+    return total
+
+
+def flop_bound(flops: float, nbytes: float) -> dict:
+    """The least time for ``flops`` fp32 operations moving ``nbytes``."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"gflop": flops / 1e9, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_diffusion(dev):
+    """The diffusion method with the committed prior. GPU against CPU with
+    the same draws: Griffin-Lim at Part 2's full (1025, 862); the U-Net
+    forward, 3 training steps and 3 DDIM steps on a 172-column crop across
+    the hole's edge. Then on the GPU at the full (1028, 864): one forward, the
+    50-step sample and 10-step profile, training steps at batch 8 x 128^2,
+    Griffin-Lim; each with its FLOP bound."""
+    from audio_inpainting_torch.methods import diffusion as diff
+    from audio_inpainting_torch.ops.griffin_lim import griffin_lim
+    from audio_inpainting_torch.utils import load_params
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prior = load_params(diff.PRIOR_DIR, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prior_cpu = {k: v.cpu() for k, v in prior.items()}
+    n_params = sum(v.numel() for v in prior_cpu.values())
+    damaged, img_u8, mask_u8, smin, smax = diffusion_image()
+    linear = diff.image_to_linear_spec(img_u8, smin, smax)
+    n = len(damaged)
+
+    # Griffin-Lim, 32 iterations at full size
+    gl_gpu = griffin_lim(linear, length=n, seed=0, device=dev)
+    t0 = time.perf_counter()
+    gl_cpu = griffin_lim(linear, length=n, seed=0, device="cpu")
+    gl_cpu_ms = (time.perf_counter() - t0) * 1e3
+    gl = {"shape": list(linear.shape), "n_iter": 32,
+          "agreement_snr_db": agreement_snr_db(gl_cpu, gl_gpu.cpu()),
+          "ms": cuda_ms(lambda: griffin_lim(linear, length=n, seed=0, device=dev),
+                        calls=1, rounds=3),
+          "cpu_ms": gl_cpu_ms,
+          "profile": device_profile(lambda: griffin_lim(linear, length=n, seed=0,
+                                                        device=dev), kernel="fft")}
+
+    # a crop across the hole's left edge, half known and half hole, small
+    # enough for the CPU
+    bad = np.flatnonzero((mask_u8 == 255).mean(axis=0) > 0.95)
+    c0 = int(bad.min()) - 86
+
+    def as_input(u8):
+        """Padded to multiples of 4, as diffusion_inpaint_image pads."""
+        return np.pad(u8, ((0, -u8.shape[0] % 4), (0, -u8.shape[1] % 4)))
+
+    img = torch.tensor(as_input(img_u8[:, c0:c0 + 172]), dtype=torch.float32) / 127.5 - 1.0
+    keep = torch.tensor(as_input(mask_u8[:, c0:c0 + 172] == 0), dtype=torch.float32)
+    t = torch.tensor([500.0])
+    with torch.no_grad():
+        fwd_err = rel_err(diff.new_model(prior, 32, dev)(img[None, None].to(dev), t.to(dev)),
+                          diff.new_model(prior_cpu, 32, "cpu")(img[None, None], t))
+    cfg = diff.DiffusionConfig()
+    trained = []
+    for d in (dev, torch.device("cpu")):
+        model = diff.new_model(diff._draw_init(0, "clip", 32), 32, d)
+        losses = diff.train_steps(model, diff._adam_for(model, cfg), img.to(d), keep.to(d),
+                                  cfg, 0, "clip", range(3))
+        trained.append((losses.cpu(), {k: v.cpu() for k, v in model.state_dict().items()}))
+    (g_loss, g_state), (c_loss, c_state) = trained
+    scfg = diff.DiffusionConfig(sample_steps=3)
+    g_ddim = diff.ddim_repaint(diff.new_model(prior, 32, dev), img.to(dev), keep.to(dev), 0,
+                               scfg)
+    c_ddim = diff.ddim_repaint(diff.new_model(prior_cpu, 32, "cpu"), img, keep, 0, scfg)
+    vs_cpu = {"crop": list(img.shape), "tolerance":
+              f"Griffin-Lim >= {GL_AGREEMENT_DB:g} dB; forward within "
+              f"{DIFF_FORWARD_RTOL:g} of its peak; 3 training steps: losses within "
+              f"{DIFF_LOSS_RTOL:g} relative, parameters within {DIFF_PARAM_ATOL:g}; "
+              f"3 DDIM steps within {DDIM_ATOL:g}",
+              "griffin_lim_agreement_snr_db": gl["agreement_snr_db"],
+              "forward_err_of_peak": fwd_err,
+              "train_loss_rel_err": rel_err(g_loss, c_loss),
+              "train_param_max_abs_err": max(float((v - c_state[k]).abs().max())
+                                             for k, v in g_state.items()),
+              "ddim_max_abs_err": float((g_ddim.cpu() - c_ddim).abs().max())}
+    for key, ok in (("griffin_lim_agreement_snr_db",
+                     vs_cpu["griffin_lim_agreement_snr_db"] >= GL_AGREEMENT_DB),
+                    ("forward_err_of_peak", fwd_err <= DIFF_FORWARD_RTOL),
+                    ("train_loss_rel_err", vs_cpu["train_loss_rel_err"] <= DIFF_LOSS_RTOL),
+                    ("train_param_max_abs_err",
+                     vs_cpu["train_param_max_abs_err"] <= DIFF_PARAM_ATOL),
+                    ("ddim_max_abs_err", vs_cpu["ddim_max_abs_err"] <= DDIM_ATOL)):
+        if not ok:
+            raise AssertionError(f"diffusion GPU vs CPU: {key} {vs_cpu[key]}")
+
+    # full size on the GPU: Part 2's image padded to (1028, 864)
+    full = torch.tensor(as_input(img_u8), dtype=torch.float32, device=dev) / 127.5 - 1.0
+    full_keep = torch.tensor(as_input(mask_u8 == 0), dtype=torch.float32, device=dev)
+    model = diff.new_model(prior, 32, dev)
+    x_full = full[None, None]
+    t_full = torch.tensor([500.0], device=dev)
+    fwd_macs = unet_macs(model, tuple(x_full.shape))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(x_full, t_full), calls=5, rounds=3)
+    forward = {"shape": list(x_full.shape), "ms": fwd_ms, "gmac": fwd_macs / 1e9,
+               **flop_bound(2.0 * fwd_macs, 4.0 * (2 * x_full.numel() + n_params))}
+    forward["tflops"] = forward["gflop"] / fwd_ms
+
+    sample_cfg = diff.DiffusionConfig()
+    diff.ddim_repaint(model, full, full_keep, 0, diff.DiffusionConfig(sample_steps=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sample_ms = cuda_ms(lambda: diff.ddim_repaint(model, full, full_keep, 0, sample_cfg),
+                        calls=1, rounds=3, warmup=0)
+    out = diff.ddim_repaint(model, full, full_keep, 0, sample_cfg)
+    if not bool(torch.isfinite(out).all()) or not torch.equal(out[full_keep == 1],
+                                                              full[full_keep == 1]):
+        raise AssertionError("DDIM sample is not finite or changed a known pixel")
+    n_prof = 10
+    prof = device_profile(lambda: diff.ddim_repaint(
+        model, full, full_keep, 0, diff.DiffusionConfig(sample_steps=n_prof)),
+        top=10, kernel="conv")
+    step_ms = sample_ms / sample_cfg.sample_steps
+    ddim = {"steps": sample_cfg.sample_steps, "sample_ms": sample_ms, "ms_per_step": step_ms,
+            "device_calls_per_step": prof["device_calls"] / n_prof,
+            "device_busy_ms_per_step": prof["device_busy_ms"] / n_prof,
+            "device_idle_share": prof["device_idle_share"],
+            "device_idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / n_prof / step_ms,
+            "top": prof["top"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **flop_bound(2.0 * fwd_macs * sample_cfg.sample_steps,
+                         4.0 * (2 * x_full.numel() + n_params))}
+
+    # per-clip training's step: batch 8 x 128^2 patches of the full image
+    tmodel = diff.new_model(diff._draw_init(0, "clip", 32), 32, dev)
+    opt = diff._adam_for(tmodel, cfg)
+    counter = itertools.count()
+    block = 20
+
+    def steps(k):
+        i = next(counter) * block
+        return diff.train_steps(tmodel, opt, full, full_keep, cfg, 0, "clip", range(i, i + k))
+
+    steps(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_ms = cuda_ms(lambda: steps(block), calls=1, rounds=3, warmup=0) / block
+    prof = device_profile(lambda: steps(n_prof), top=10, kernel="conv")
+    losses = steps(block)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("diffusion training: a loss is not finite")
+    train_macs = unet_macs(tmodel, (cfg.batch, 1, cfg.patch, cfg.patch))
+    train = {"batch": cfg.batch, "patch": cfg.patch, "ms_per_step": train_ms,
+             "device_calls_per_step": prof["device_calls"] / n_prof,
+             "device_busy_ms_per_step": prof["device_busy_ms"] / n_prof,
+             "device_idle_share": prof["device_idle_share"],
+             "device_idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / n_prof / train_ms,
+             "top": prof["top"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "forward_gmac": train_macs / 1e9,
+             # forward and backward: about three forwards of work
+             **flop_bound(3 * 2.0 * train_macs,
+                          4.0 * (2 * cfg.batch * cfg.patch ** 2 + 4 * n_params))}
+    emit({"phase": "diffusion", "prior": {"tensors": len(prior), "parameters": n_params,
+                                         "load_s": load_s},
+          "gpu_vs_cpu": vs_cpu, "griffin_lim": gl,
+          "full_size": {"forward": forward, "ddim": ddim, "train_step": train}})
+
+
 def phase_facade(dev, tmp: Path):
     from audio_inpainting_torch import restore
     from audio_inpainting_torch.corrupt import find_gaps
@@ -310,7 +528,8 @@ def phase_facade(dev, tmp: Path):
                        "lsd_db": float(lsd_db(clean, out))},
           "nmf": facade_nmf(clean, damaged),
           "gp": facade_gp(clean),
-          **facade_neural(clean, damaged)})
+          **facade_neural(clean, damaged),
+          "diffusion": facade_diffusion()})
     return launches
 
 
@@ -358,6 +577,35 @@ def facade_neural(clean, damaged) -> dict:
                        "snr_db": float(snr_db(clean, got)),
                        "lsd_db": float(lsd_db(clean, got))}
     return out
+
+
+def facade_diffusion() -> dict:
+    """restore(method="diffusion") on the GPU: per-clip training at its
+    default step count (no checkpoint), 50 DDIM steps, Griffin-Lim, the
+    composite. On Part 2's 10 s clip with its 2 s hole: the facade's
+    dropouts darken no whole image column (hop 512), so there the
+    composite would change no sample."""
+    from audio_inpainting_torch import restore
+    from audio_inpainting_torch.corrupt import center_gap_bounds, synth_music_clip
+    from audio_inpainting_torch.metrics import local_snr_db, lsd_db, snr_db
+
+    clean = synth_music_clip(1, SR, 10.0)
+    damaged = diffusion_image()[0]
+    gs, ge = center_gap_bounds(len(clean), SR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = restore(damaged, SR, method="diffusion", train_steps=FACADE_DIFFUSION_STEPS)
+    wall_s = time.perf_counter() - t0
+    changed = got != damaged
+    if got.shape != damaged.shape or not np.isfinite(got).all() or not changed[gs:ge].all():
+        raise AssertionError("diffusion facade output has the wrong shape, is not "
+                             "finite or left part of the hole as it was")
+    return {"clip": "Part 2's, a centred 2 s hole", "train_steps": FACADE_DIFFUSION_STEPS,
+            "default_train_steps": 1500, "wall_s": wall_s,
+            "samples_changed": int(np.count_nonzero(changed)),
+            "snr_db": float(snr_db(clean, got)),
+            "local_snr_db": float(local_snr_db(clean, got, gs, ge)),
+            "lsd_db": float(lsd_db(clean, got))}
 
 
 def facade_gp(clean) -> dict:
@@ -672,23 +920,30 @@ def part1_kernel_row(dev, eq, gaps, cfg) -> dict:
 def phase_pipelines(dev, tmp: Path):
     from audio_inpainting_torch.corrupt import synth_music_clip
     from audio_inpainting_torch.io import save_wav_int16
+    from audio_inpainting_torch.methods.diffusion import PRIOR_DIR
     from audio_inpainting_torch.ops import ar_scan
     from audio_inpainting_torch.pipelines import run_part0, run_part2
+    from audio_inpainting_torch.utils import load_params
 
     clip = str(tmp / "clip.wav")
     save_wav_int16(synth_music_clip(1, SR, 10.0), SR, clip)
     assets = str(tmp / "assets")
+    # the diffusion leg samples from the committed prior, as the CLI does
+    prior = load_params(PRIOR_DIR, dev)
 
     t0 = time.perf_counter()
-    run_part2(clip, assets, seed=0, gan_epochs=10)           # cold
+    run_part2(clip, assets, seed=0, gan_epochs=10, diffusion_params=prior)   # cold
     cold_s = time.perf_counter() - t0
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
-    part2 = run_part2(clip, assets, seed=0)      # 1500 GAN epochs, retry armed
+    # 1500 GAN epochs, retry armed
+    part2 = run_part2(clip, assets, seed=0, diffusion_params=prior)
     part2_s = time.perf_counter() - t0
     part2_launches = ar_scan.LAUNCHES
-    check_artifacts(assets, "part2",
-                    ["damaged", "original", "linear", "ar", "nmf", "gan"], SR)
+    check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar", "nmf", "gan",
+                                      "diffusion"], SR)
+    if not part2["diffusion"]["pretrained"]:
+        raise AssertionError("Part 2's diffusion leg did not take the prior")
 
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -720,6 +975,7 @@ def main() -> int:
     rows = phase_kernel(dev)
     phase_nmf(dev)
     phase_neural(dev)
+    phase_diffusion(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_facade(dev, Path(tmp))
         part1_launches, part1_row = phase_part1(dev, Path(tmp))

@@ -4,10 +4,11 @@ the JAX package's, on the CPU.
 
 Both packages get the same random numbers: the JAX package's frame mask,
 texture noise, NMF init, GP restart draws and U-Net/GAN init weights are
-injected into the port. The JAX pipelines also run legs the port does not
-have yet (diffusion, the waveform figures); those are stubbed.
-Deterministic legs agree within 0.05 dB (SNR, local SNR, LSD), the U-Net
-and GAN legs too, at 2 bf16 epochs. The GP legs are held by quality within
+injected into the port, and the Griffin-Lim phase and DDIM draws of
+Part 2's diffusion leg. The JAX pipelines also draw waveform figures,
+which the port does not; those are stubbed. Deterministic legs agree
+within 0.05 dB (SNR, local SNR, LSD), the diffusion leg too; the U-Net and
+GAN legs at 2 bf16 epochs within GAN_DB_TOL. The GP legs are held by quality within
 GP_MARGIN_DB: their fits may part where float32 rounding branches the line
 search (tests/test_torch_gp.py).
 """
@@ -23,18 +24,22 @@ import pytest
 import torch
 
 import audio_inpainting_tpu.api as japi
+import audio_inpainting_tpu.methods.diffusion as jdiff
 import audio_inpainting_tpu.methods.neural as jneural
 import audio_inpainting_tpu.pipelines.part0 as jpart0
 import audio_inpainting_tpu.pipelines.part1 as jpart1
 import audio_inpainting_tpu.pipelines.part2 as jpart2
 from audio_inpainting_tpu.corrupt import random_frame_mask as jax_random_frame_mask
+from audio_inpainting_tpu.utils.checkpoint import load_params as jax_load_params
 from audio_inpainting_tpu.models.packed_unet import (PackedDiscriminator,
                                                      PackedGeneratorUNet,
                                                      PackedSimpleUNet)
 import audio_inpainting_torch.methods.ar as tar
+import audio_inpainting_torch.methods.diffusion as tdiff
 import audio_inpainting_torch.methods.gp as tgp
 import audio_inpainting_torch.methods.neural as tneural
 import audio_inpainting_torch.methods.nmf as tnmf
+import audio_inpainting_torch.ops.griffin_lim as tgl
 import audio_inpainting_torch.pipelines.part1 as tpart1
 from audio_inpainting_torch import api as tapi
 from audio_inpainting_torch.cli.main import main as tmain
@@ -42,6 +47,7 @@ from audio_inpainting_torch.convert import flax_to_state_dict
 from audio_inpainting_torch.corrupt import synth_music_clip
 from audio_inpainting_torch.io import read_wav, save_wav_int16
 from audio_inpainting_torch.pipelines import asset_path, run_part0, run_part1, run_part2
+from audio_inpainting_torch.utils import load_params
 
 # One intra-op thread: Tier-1 runs 6 xdist workers, and every worker
 # imports this module. With more threads, torch's CPU FFT (MKL) gives
@@ -50,6 +56,8 @@ from audio_inpainting_torch.pipelines import asset_path, run_part0, run_part1, r
 torch.set_num_threads(1)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JAX_PRIOR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "checkpoints", "diffusion_prior")
 DB_TOL = 0.05
 # the GAN leg at 2 bf16 epochs: measured gaps 0.07 dB (SNR), 0.45 dB
 # (local SNR), 0.37 dB (LSD). bf16 rounding: at init the generator's bf16
@@ -102,11 +110,28 @@ def _jax_init(kind, seed, attempt, shape, dtype):
             flax_to_state_dict(d["params"], d["batch_stats"])]
 
 
+def _jax_phase(seed, shape):
+    return torch.tensor(np.asarray(jax.random.uniform(
+        jax.random.PRNGKey(seed), shape, minval=-jnp.pi, maxval=jnp.pi)))
+
+
+def _jax_sample(seed, shape, n_steps):
+    """The DDIM draws of diffusion_inpaint_image(key=seed) (diffusion.py:278,
+    :177-189)."""
+    k_init, k = jax.random.split(jax.random.split(jax.random.PRNGKey(seed), 3)[1])
+    yield torch.tensor(np.asarray(jax.random.normal(k_init, shape)))
+    for _ in range(n_steps):
+        k, k1 = jax.random.split(k)
+        yield torch.tensor(np.asarray(jax.random.normal(k1, shape)))
+
+
 @pytest.fixture
 def jax_draws(monkeypatch):
     """Every random draw of the port replaced by the JAX package's (the
     pipelines' U-Net and GAN run bf16 convs)."""
     monkeypatch.setattr(tar, "_draw_eps", _jax_eps)
+    monkeypatch.setattr(tgl, "_draw_phase", _jax_phase)
+    monkeypatch.setattr(tdiff, "_draw_sample", _jax_sample)
     monkeypatch.setattr(tnmf, "_draw_wh", _jax_wh)
     monkeypatch.setattr(tgp, "_draw_restarts", _jax_restarts)
     monkeypatch.setattr(tpart1, "_draw_frame_mask", _jax_frame_mask)
@@ -116,9 +141,7 @@ def jax_draws(monkeypatch):
 
 @pytest.fixture
 def jax_stubs(monkeypatch):
-    """The JAX pipelines' legs and figures that are not ported yet."""
-    monkeypatch.setattr(jpart2, "diffusion_restore_audio",
-                        lambda damaged, *a, **k: damaged)
+    """The JAX pipelines' figures, which are not ported yet."""
     for viz in ("gp_waveform_viz", "ar_waveform_viz", "ar_texture_waveform_viz",
                 "nmf_waveform_viz"):
         monkeypatch.setattr(jpart0, viz, lambda *a, **k: None)
@@ -181,15 +204,21 @@ def test_run_part0_gp_and_nmf_legs_match_jax(tmp_path, jax_draws, jax_stubs):
 
 
 def test_run_part2_nmf_leg_matches_jax(tmp_path, jax_draws, jax_stubs):
-    """The NMF leg, and the GAN leg at 2 bf16 epochs (retry not armed)."""
+    """The NMF leg, the GAN leg at 2 bf16 epochs (retry not armed) and the
+    diffusion leg from the committed corpus prior (2 DDIM steps), as the
+    CLI runs it (measured within 0.0022 dB)."""
     clip = _clip(tmp_path, seed=2, sr=8000)
-    want = jpart2.run_part2(clip, str(tmp_path / "jax"), seed=0, gan_epochs=2)
+    want = jpart2.run_part2(clip, str(tmp_path / "jax"), seed=0, gan_epochs=2,
+                            diffusion_cfg=jdiff.DiffusionConfig(sample_steps=2),
+                            diffusion_params=jax_load_params(JAX_PRIOR))
     got = run_part2(clip, str(tmp_path / "torch"), seed=0, gan_epochs=2,
-                    device="cpu")
+                    diffusion_cfg=tdiff.DiffusionConfig(sample_steps=2),
+                    diffusion_params=load_params(tdiff.PRIOR_DIR, "cpu"), device="cpu")
     assert got["gan"]["attempts"] == 1
-    _assert_legs_close(got, want, ["linear", "ar", "nmf"])
+    assert got["diffusion"]["pretrained"] is want["diffusion"]["pretrained"] is True
+    _assert_legs_close(got, want, ["linear", "ar", "nmf", "diffusion"])
     _assert_legs_close(got, want, ["gan"], GAN_DB_TOL)
-    _check_artifacts(str(tmp_path / "torch"), "part2", ["nmf", "gan"], 8000)
+    _check_artifacts(str(tmp_path / "torch"), "part2", ["nmf", "gan", "diffusion"], 8000)
 
 
 def _agreement_snr(ref, got):
@@ -239,3 +268,21 @@ def test_cli_part1_roundtrip(tmp_path, capsys):
         path = asset_path("", "part1", leg)
         assert (open(str(tmp_path / "cli") + "/" + path, "rb").read()
                 == open(str(tmp_path / "direct") + "/" + path, "rb").read())
+
+
+def test_cli_diffusion_checkpoint_resolution(tmp_path, capsys):
+    """Part 2's diffusion weights on the command line: the committed prior
+    by default (with a notice), 'none' for per-clip training, and a named
+    directory that does not exist fails before any leg runs."""
+    from audio_inpainting_torch.cli.main import _diffusion_checkpoint
+
+    assert _diffusion_checkpoint(None) == tdiff.PRIOR_DIR
+    assert "corpus prior" in capsys.readouterr().err
+    assert _diffusion_checkpoint("none") is None
+    assert _diffusion_checkpoint(str(tmp_path)) == str(tmp_path)
+    missing = str(tmp_path / "missing")
+    for cmd in ("part2", "all"):
+        with pytest.raises(FileNotFoundError, match="missing"):
+            tmain([cmd, "--input", "unused.wav", "--assets-dir", str(tmp_path / "a"),
+                   "--diffusion-checkpoint", missing, "--device", "cpu"])
+    assert not (tmp_path / "a").exists()
