@@ -9,11 +9,12 @@ package:
   models/    L3  the spectrogram U-Net, GAN generator and discriminator
   methods/   L3  linear, AR, masked NMF, OLA gain equalization, GP, and the
                  per-clip U-Net and GAN training loops; the uniform
-                 ``restore`` API
+                 ``restore`` API; the windowed and streaming engines over it
   metrics/   L4  SNR / local SNR / LSD
   pipelines/ L6  Part 0 / 1 / 2 scenario pipelines, the demo_assets contract
-  cli/           the ``restore``, ``part0``/``part1``/``part2``/``all`` and
-                 ``unet-gap`` commands
+  cli/           the ``restore`` (``--window-s``), ``stream``,
+                 ``part0``/``part1``/``part2``/``all`` and ``unet-gap``
+                 commands
   csrc/          CUDA C++ kernels for Hopper (sm_90a); kernels/ builds them
 
 Entry points run on the GPU unless called with device="cpu".
@@ -33,5 +34,7 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from .api import restore  # noqa: E402  (uniform L3 contract)
+from .methods.windowed import restore_windowed  # noqa: E402
+from .methods.streaming import StreamRestorer, restore_stream  # noqa: E402
 
-__all__ = ["restore"]
+__all__ = ["restore", "restore_windowed", "StreamRestorer", "restore_stream"]

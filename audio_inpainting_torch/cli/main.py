@@ -4,11 +4,17 @@
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --device cpu
   python -m audio_inpainting_torch restore damaged.wav fixed.wav --method gan \
       --original clean.wav
+  python -m audio_inpainting_torch restore long.wav fixed.wav --window-s 2
+  python -m audio_inpainting_torch stream --sr 44100 --method ar --warmup \
+      < damaged.f32 > fixed.f32
   python -m audio_inpainting_torch part0|part1|part2|all --input clip.wav
   python -m audio_inpainting_torch unet-gap --input clip.wav --epochs 600
 
 ``restore`` reads the WAV through the int16 chain, restores it with the
-facade and writes an int16 WAV. ``part0``/``part1``/``part2``/``all`` run
+facade (or, with ``--window-s``, with the windowed engine: only windows of
+that many seconds around the damage) and writes an int16 WAV. ``stream``
+restores raw little-endian float32 mono PCM from stdin to stdout with the
+streaming engine. ``part0``/``part1``/``part2``/``all`` run
 the scenario pipelines, write the demo_assets set and print each leg's
 metrics; Part 2's diffusion leg samples from the committed corpus prior
 unless ``--diffusion-checkpoint`` names another (``none``: train per
@@ -86,7 +92,47 @@ def build_parser() -> argparse.ArgumentParser:
     cmd.add_argument("--seed", type=int, default=0)
     cmd.add_argument("--original", default=None,
                      help="clean reference WAV (GAN method only)")
+    cmd.add_argument("--window-s", type=float, default=None,
+                     help="windowed long-clip mode: restore only fixed "
+                          "windows of this many seconds around the detected "
+                          "damage (O(damage) work; clean audio passes "
+                          "through exactly)")
     _add_device(cmd)
+
+    st = sub.add_parser("stream", help="restore a raw little-endian float32 "
+                                       "mono PCM stream, stdin -> stdout "
+                                       "(bounded latency, O(damage) work)")
+    st.add_argument("--sr", type=int, required=True,
+                    help="sample rate of the incoming PCM")
+    st.add_argument("--method", default="linear",
+                    choices=["linear", "ar", "nmf", "gp", "unet"],
+                    help="per-window restore method (gan and diffusion need "
+                         "clean references or checkpoints: not streamable)")
+    st.add_argument("--window-s", type=float, default=None,
+                    help="restore window seconds (default: per method, "
+                         "linear/gp 0.5, ar/unet 2, else 10)")
+    st.add_argument("--adapt-epochs", type=int, default=100,
+                    help="unet: warm-window adaptation budget of the "
+                         "per-stream persistent net (the first window "
+                         "trains the full --epochs budget)")
+    st.add_argument("--fresh-net", action="store_true",
+                    help="unet: train a fresh net per window instead of "
+                         "carrying one net per stream")
+    st.add_argument("--epochs", type=int, default=None,
+                    help="unet: cold-window training epochs (default 400)")
+    st.add_argument("--chunk", type=int, default=65536,
+                    help="samples per stdin read")
+    st.add_argument("--margin", type=int, default=50)
+    st.add_argument("--threshold", type=float, default=1e-4)
+    st.add_argument("--seed", type=int, default=0)
+    st.add_argument("--warmup", action="store_true",
+                    help="run representative windows BEFORE reading stdin "
+                         "(StreamRestorer.warmup), so the first gap pays "
+                         "no one-time cost (the kernel build, cuDNN setup)")
+    st.add_argument("--max-gap-s", type=float, default=None,
+                    help="longest expected damage span, bounds --warmup's "
+                         "windows (default: everything up to the window cap)")
+    _add_device(st)
 
     p0 = sub.add_parser("part0", help="0.05 s segment: GP, AR, AR+texture, NMF")
     _add_common(p0)
@@ -135,13 +181,20 @@ def main(argv=None) -> int:
         sr, damaged = load_mono_normalized(args.input_wav)
         original = (load_mono_normalized(args.original)[1]
                     if args.original else None)
-        out = restore(damaged, sr, method=args.method,
-                      threshold=args.threshold, seed=args.seed,
-                      original=original, device=args.device)
+        kw = dict(method=args.method, threshold=args.threshold,
+                  seed=args.seed, original=original, device=args.device)
+        if args.window_s is not None:
+            from ..methods.windowed import restore_windowed
+
+            out = restore_windowed(damaged, sr, window_s=args.window_s, **kw)
+        else:
+            out = restore(damaged, sr, **kw)
         save_wav_int16(out, sr, args.output_wav)
         print(f"restored {args.input_wav} -> {args.output_wav} "
               f"({args.method}, {args.device}, {time.time() - t_start:.1f}s)")
         return 0
+    if args.cmd == "stream":
+        return _stream(args, t_start)
     if args.cmd == "unet-gap":
         from ..pipelines.extras import run_unet_gap
 
@@ -172,6 +225,56 @@ def main(argv=None) -> int:
             diffusion_cfg=DiffusionConfig(train_steps=args.diffusion_steps),
             diffusion_checkpoint=dckpt, device=args.device), args.json)
     print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
+    return 0
+
+
+def _stream(args, t_start: float) -> int:
+    """The ``stream`` command: stdin PCM through a StreamRestorer."""
+    import numpy as np
+
+    from ..methods.streaming import StreamRestorer
+
+    kw = {}
+    if args.method == "unet":
+        kw["persist"] = not args.fresh_net
+        kw["adapt_epochs"] = args.adapt_epochs
+        if args.epochs is not None:
+            kw["epochs"] = args.epochs
+    rest = StreamRestorer(args.sr, method=args.method, window_s=args.window_s,
+                          margin=args.margin, threshold=args.threshold,
+                          seed=args.seed, device=args.device, **kw)
+    if args.warmup:
+        t0 = time.time()
+        n_warm = rest.warmup(args.max_gap_s)
+        print(f"warmup: {n_warm} windows in {time.time() - t0:.1f}s",
+              file=sys.stderr)
+    stdin, stdout = sys.stdin.buffer, sys.stdout.buffer
+    carry = b""   # pipe reads can split a sample's 4 bytes
+    total_in = total_out = 0
+
+    def write(out):
+        nonlocal total_out
+        if len(out):
+            total_out += len(out)
+            stdout.write(np.asarray(out, "<f4").tobytes())
+            stdout.flush()
+
+    while buf := stdin.read(args.chunk * 4):
+        carry += buf
+        usable = len(carry) - len(carry) % 4
+        if not usable:
+            continue
+        x = np.frombuffer(carry[:usable], "<f4")
+        carry = carry[usable:]
+        total_in += len(x)
+        write(rest.feed(x))
+    if carry:
+        print(f"warning: {len(carry)} trailing bytes are not a whole "
+              "float32 sample; dropped", file=sys.stderr)
+    write(rest.flush())
+    print(f"streamed {total_in} samples in, {total_out} out "
+          f"({args.method}, {args.device}, {time.time() - t_start:.1f}s)",
+          file=sys.stderr)
     return 0
 
 

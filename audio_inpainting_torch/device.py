@@ -22,6 +22,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def host_to_device(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor moved to ``device``; to a GPU through pinned memory
+    (the caching host allocator reuses the blocks) and asynchronously, so
+    the host goes on while the copy runs."""
+    if device.type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a.to(device)
+
+
 def as_f32(x, device=None) -> torch.Tensor:
     """float32 tensor of ``x``.
 

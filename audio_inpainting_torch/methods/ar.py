@@ -18,25 +18,33 @@ is gathered, fitted (masked Ridge normal equations, Cholesky) and
 extrapolated together, then crossfaded and pasted. The recurrence runs in
 the hand-written CUDA kernel (ops/ar_scan.py) when ``chunk == 0`` and the
 tensors are on the GPU; ``chunk > 0`` takes the companion-matrix form as
-batched matmuls. ``passes > 1`` re-runs the batch on the previous pass's
-output.
+batched matmuls, and so do orders above the kernel's limit on the GPU
+(``extrapolation_chunk``). ``passes > 1`` re-runs the batch on the
+previous pass's output.
 
-Texture noise: pass p draws one (max_len, B) standard normal from a
-``torch.Generator`` seeded from (seed, p), indexed eps[t, b]. It is not
-jax.random's stream; the public functions take ``eps`` (one (max_len, B)
-tensor per pass) so tests can inject the JAX package's own draws.
+``ar_restore_gaps_windows`` runs a stack of equal-length windows the same
+way: the windows' rows form one batch, so one pass is one fit and one
+kernel launch for all of them (the JAX package vmaps its plain scan over
+the windows instead).
+
+Texture noise: pass p draws one (max_len, B) standard normal from a CPU
+``torch.Generator`` seeded from (seed, p), indexed eps[t, b], the same
+numbers on every device. It is not jax.random's stream; the public
+functions take ``eps`` (one (max_len, B) tensor per pass) so tests can
+inject the JAX package's own draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import as_f32
-from ..ops.ar_scan import ar_extrapolate, ar_extrapolate_ref
+from ..device import as_f32, host_to_device
+from ..ops.ar_scan import MAX_ORDER, ar_extrapolate, ar_extrapolate_ref
 
 
 @dataclass(frozen=True)
@@ -47,7 +55,9 @@ class ARConfig:
     # Chunked companion-matrix extrapolation: advance the recurrence
     # ``chunk`` samples per step as three batched matmuls (see
     # _extrapolate_chunked) instead of one dot per sample. 0 = off
-    # (the CUDA kernel, or the plain loop on the CPU). Requires chunk >= order.
+    # (the CUDA kernel, or the plain loop on the CPU; on the GPU orders
+    # above the kernel's limit take this form anyway, see
+    # extrapolation_chunk). Requires chunk >= order.
     chunk: int = 0
     # Multiplier on the residual-sigma texture noise. 1.0 = reference
     # behavior (main3_AR_text.py:74 injects N(0, noise_std)).
@@ -216,18 +226,26 @@ def _extract_contexts(signal: torch.Tensor, starts: torch.Tensor,
                       ends: torch.Tensor, context_len: int):
     """Gather (2G, C) contexts: rows [0,G) forward (left side, natural order),
     rows [G,2G) backward (right side, reversed). Front-padded with zeros
-    where the clip boundary truncates the context; pad lengths returned."""
-    n = signal.shape[0]
+    where the clip boundary truncates the context; pad lengths returned.
+
+    A window stack (W, n) with (W, G) starts and ends gives (W*2G, C) rows,
+    window-major: each window's 2G rows in the order above, gathered from
+    its own row of one padded (W, n + 2C) buffer."""
+    if signal.dim() == 1:
+        signal, starts, ends = signal[None], starts[None], ends[None]
+    n = signal.shape[1]
     C = context_len
     padded = F.pad(signal, (C, C))
     offs = torch.arange(C, device=signal.device)
+    row = torch.arange(signal.shape[0], device=signal.device)[:, None, None]
     # fwd: original [start-C, start)  -> padded [start, start+C)
-    fwd = padded[starts[:, None] + offs[None, :]]
+    fwd = padded[row, starts[..., None] + offs]
     fwd_pad = (C - starts).clamp_min(0)
     # bwd: original [end, end+C) reversed -> padded [end+2C-1 .. end+C]
-    bwd = padded[ends[:, None] + (2 * C - 1) - offs[None, :]]
+    bwd = padded[row, ends[..., None] + (2 * C - 1) - offs]
     bwd_pad = (ends + C - n).clamp_min(0)
-    return torch.cat([fwd, bwd]), torch.cat([fwd_pad, bwd_pad])
+    return (torch.cat([fwd, bwd], dim=1).reshape(-1, C),
+            torch.cat([fwd_pad, bwd_pad], dim=1).reshape(-1))
 
 
 def _blend_and_paste(signal: torch.Tensor, starts: torch.Tensor,
@@ -239,39 +257,46 @@ def _blend_and_paste(signal: torch.Tensor, starts: torch.Tensor,
 
     weights = linspace(1, 0, L) (all-ones / all-zeros when one side is
     invalid — reference main3_AR_text_gap.py:113-118).
+
+    signal (n,) with (G,) starts, lens and flags and (G, max_len)
+    predictions; or a window stack (W, n) with (W, G) and (W, G, max_len).
     """
-    n = signal.shape[0]
+    n = signal.shape[-1]
     dev = signal.device
-    t = torch.arange(max_len, device=dev)[None, :]               # (1, S)
-    L = lens[:, None]                                            # (G, 1)
+    t = torch.arange(max_len, device=dev)                        # (S,)
+    L = lens[..., None]                                          # (..., G, 1)
     in_gap = t < L
     # reversed-in-gap backward prediction: bwd_rev[g, t] = bwd[g, L-1-t]
     rev_idx = (L - 1 - t).clamp(0, max_len - 1)
-    bwd_rev = torch.gather(bwd, 1, rev_idx)
+    bwd_rev = torch.gather(bwd, -1, rev_idx)
 
     ramp = 1.0 - t.to(torch.float32) / (L - 1).clamp_min(1).to(torch.float32)
     wts = torch.where(L > 1, ramp, 1.0)
-    wts = torch.where(fwd_valid[:, None], wts, 0.0)
-    wts = torch.where(bwd_valid[:, None], wts, 1.0)
+    wts = torch.where(fwd_valid[..., None], wts, 0.0)
+    wts = torch.where(bwd_valid[..., None], wts, 1.0)
     fill = fwd * wts + bwd_rev * (1.0 - wts)
 
     # positions outside the gap or past the clip end go to a sink slot at
-    # index n, cut off afterwards (JAX's scatter mode="drop")
-    pos = starts[:, None] + t
+    # index n of each signal's row, cut off afterwards (JAX's scatter
+    # mode="drop"); row w starts at w * (n + 1) in the flat copy
+    pos = starts[..., None] + t
     pos = torch.where(in_gap & (pos < n), pos, n)
-    out = torch.cat([signal, signal.new_zeros(1)])
+    rows = signal.reshape(-1, n)
+    W = rows.shape[0]
+    pos = pos.reshape(W, -1) + torch.arange(W, device=dev)[:, None] * (n + 1)
+    out = torch.cat([rows, rows.new_zeros(W, 1)], dim=1).reshape(-1)
     out.index_put_((pos.reshape(-1),), fill.reshape(-1))
-    return out[:n]
+    return out.reshape(W, n + 1)[:, :n].reshape(signal.shape)
 
 
 def _draw_eps(seed: int, p: int, shape: tuple[int, int],
               device: torch.device) -> torch.Tensor:
-    """Texture noise of pass ``p``: a standard normal from a generator
-    seeded from (seed, p)."""
+    """Texture noise of pass ``p``: a standard normal from a CPU generator
+    seeded from (seed, p), the same numbers on every device, copied to
+    ``device``."""
     mixed = np.random.SeedSequence([seed, p]).generate_state(1, np.uint64)[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(mixed) >> 1)
-    return torch.randn(shape, generator=gen, device=device)
+    gen = torch.Generator().manual_seed(int(mixed) >> 1)
+    return host_to_device(torch.randn(shape, generator=gen), device)
 
 
 def _max_len(starts: np.ndarray, ends: np.ndarray, cfg: ARConfig) -> int:
@@ -280,38 +305,71 @@ def _max_len(starts: np.ndarray, ends: np.ndarray, cfg: ARConfig) -> int:
     return bucket_max_len(max_len) if cfg.bucket else max_len
 
 
-def _restore_once(signal: torch.Tensor, starts: np.ndarray, ends: np.ndarray,
-                  cfg: ARConfig, eps: torch.Tensor | None):
-    """One pass over every gap: extract, fit, extrapolate, blend.
+def extrapolation_chunk(order: int, chunk: int, device_type: str) -> int:
+    """The chunk length the recurrence of a pass runs at: 0 for
+    ``ar_extrapolate`` (the CUDA kernel on the GPU, the plain loop on the
+    CPU), else the companion-matrix form's. An order above the kernel's
+    ``MAX_ORDER`` takes that form on the GPU, at the order rounded up to a
+    multiple of 32, as the JAX package takes its plain scan above its
+    kernel's limit (JAX methods/ar.py:351)."""
+    if chunk > 0:
+        return chunk
+    if device_type == "cuda" and order > MAX_ORDER:
+        return 32 * -(-order // 32)
+    return 0
 
-    eps: (max_len, B) texture noise, or None for texture off.
-    Returns (restored signal, (B, max_len) predictions).
+
+def _restore_windows_once(signals: torch.Tensor, starts: np.ndarray,
+                          ends: np.ndarray, cfg: ARConfig,
+                          eps: torch.Tensor | None):
+    """One pass over every gap of a stack of equal-length windows: extract,
+    fit, extrapolate, blend, with the windows' rows as one batch.
+
+    signals: (W, n); starts, ends: (W, G) window-local spans (zero-length
+    rows paste nothing). eps: (max_len, W*2G) texture noise with window w's
+    rows at [w*2G, (w+1)*2G), or None for texture off.
+    Returns (restored (W, n), (W*2G, max_len) predictions).
     """
     max_len = _max_len(starts, ends, cfg)
-    dev = signal.device
+    dev = signals.device
     st = torch.as_tensor(starts, dtype=torch.long, device=dev)
     en = torch.as_tensor(ends, dtype=torch.long, device=dev)
-    G = len(starts)
-    B = 2 * G
+    W, G = starts.shape
+    B = W * 2 * G
     if max_len == 0:
-        return signal, signal.new_zeros((B, 0))
-    ctxs, pads = _extract_contexts(signal, st, en, cfg.context_len)
+        return signals, signals.new_zeros((B, 0))
+    ctxs, pads = _extract_contexts(signals, st, en, cfg.context_len)
     w, b, std, valid = _fit_ridge_batched(ctxs, pads, cfg)
     std = std * cfg.texture_scale
     if eps is None:
         eps = torch.zeros((max_len, B), device=dev)
     elif tuple(eps.shape) != (max_len, B):
         raise ValueError(f"eps must be {(max_len, B)}, got {tuple(eps.shape)}")
-    if cfg.chunk > 0:
+    chunk = extrapolation_chunk(cfg.order, cfg.chunk, dev.type)
+    if chunk > 0:
         preds = _extrapolate_chunked(ctxs, w, b, std, valid, eps, max_len,
-                                     cfg.chunk)
+                                     chunk)
     else:
         preds = ar_extrapolate(_state0(ctxs, cfg.order).contiguous(), w, b,
                                std, valid.to(torch.float32),
                                eps.T.contiguous(), max_len)
-    out = _blend_and_paste(signal, st, en - st, preds[:G], preds[G:],
-                           valid[:G], valid[G:], max_len)
+    sides = preds.reshape(W, 2, G, max_len)
+    ok = valid.reshape(W, 2, G)
+    out = _blend_and_paste(signals, st, en - st, sides[:, 0], sides[:, 1],
+                           ok[:, 0], ok[:, 1], max_len)
     return out, preds
+
+
+def _restore_once(signal: torch.Tensor, starts: np.ndarray, ends: np.ndarray,
+                  cfg: ARConfig, eps: torch.Tensor | None):
+    """One pass over every gap of one signal: a stack of one window.
+
+    eps: (max_len, B) texture noise, or None for texture off.
+    Returns (restored signal, (B, max_len) predictions).
+    """
+    out, preds = _restore_windows_once(signal[None], starts[None], ends[None],
+                                       cfg, eps)
+    return out[0], preds
 
 
 def _pass_eps(cfg: ARConfig, seed: int, eps, p: int, shape, device):
@@ -351,6 +409,57 @@ def ar_restore_gaps(signal, gaps: list[tuple[int, int]], cfg: ARConfig,
     for p in range(cfg.passes):
         out, _ = _restore_once(out, starts, ends, cfg,
                                _pass_eps(cfg, seed, eps, p, shape, out.device))
+    return out
+
+
+def windows_prep(gaps_list, cfg: ARConfig):
+    """Validate the batched windows' single-bucket contract and build the
+    padded (W, gpad) start/end arrays. Returns (cfg with bucket forced on,
+    starts, ends, gpad, max_len)."""
+    if any(not g for g in gaps_list):
+        raise ValueError("every window must have at least one gap")
+    cfg = dataclasses.replace(cfg, bucket=True)
+    gpads = {bucket_gap_count(len(g)) for g in gaps_list}
+    lens = {bucket_max_len(max(e - s for s, e in g)) for g in gaps_list}
+    if len(gpads) != 1 or len(lens) != 1:
+        raise ValueError(
+            f"windows span multiple shape buckets (gap counts {gpads}, "
+            f"max lens {lens}); group by bucket first")
+    gpad, max_len = gpads.pop(), lens.pop()
+    W = len(gaps_list)
+    starts = np.zeros((W, gpad), np.int64)
+    ends = np.zeros((W, gpad), np.int64)
+    for i, g in enumerate(gaps_list):
+        starts[i, :len(g)] = [s for s, _ in g]
+        ends[i, :len(g)] = [e for _, e in g]
+    return cfg, starts, ends, gpad, max_len
+
+
+def ar_restore_gaps_windows(signals, gaps_list, cfg: ARConfig, seed: int = 0,
+                            *, eps=None, device=None) -> torch.Tensor:
+    """Restore the gaps of a stack of equal-length windows as one batch.
+
+    signals: (W, n) float32 windows; gaps_list: per-window window-local
+    [(s, e)] spans, every list non-empty. Bucketing is forced on, and all
+    windows must land in the same (gap-count, max-len) bucket: callers
+    group windows by (size, bucket_gap_count, bucket_max_len) first
+    (methods/windowed.py). A pass is one fit, one extrapolation (one
+    kernel launch on the GPU) and one paste over all W*2*gpad rows.
+
+    Every window adds the noise the sequential path (``ar_restore_gaps``
+    with bucketing, one window at a time) adds with the same seed: pass
+    p's (max_len, 2*gpad) draw, tiled over the windows. So batched ==
+    sequential up to the batch's summation order. eps: optional list with
+    one (max_len, 2*gpad) noise tensor per pass, replacing the draws.
+    Returns the restored (W, n) float32 windows on the chosen device.
+    """
+    cfg, starts, ends, gpad, max_len = windows_prep(gaps_list, cfg)
+    out = as_f32(signals, device)
+    W = out.shape[0]
+    for p in range(cfg.passes):
+        e = _pass_eps(cfg, seed, eps, p, (max_len, 2 * gpad), out.device)
+        out, _ = _restore_windows_once(out, starts, ends, cfg,
+                                       None if e is None else e.repeat(1, W))
     return out
 
 

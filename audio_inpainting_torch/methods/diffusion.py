@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..corrupt import mask_to_bad_columns
-from ..device import resolve_device
+from ..device import host_to_device, resolve_device
 from ..models.diffusion_unet import DiffusionUNet
 from ..ops.griffin_lim import griffin_lim
 from ..ops.stft import stft, torch_stft_config
@@ -147,14 +147,6 @@ def _draw_sample(seed: int, shape: tuple[int, ...], n_steps: int):
         yield torch.randn(shape, generator=gen)
 
 
-def _to_device(a: torch.Tensor, device: torch.device) -> torch.Tensor:
-    # pinned (the caching host allocator reuses the blocks) and
-    # asynchronous: the host draws the next step while the device works
-    if device.type == "cuda":
-        return a.pin_memory().to(device, non_blocking=True)
-    return a.to(device)
-
-
 def new_model(state: dict[str, torch.Tensor], base: int, device) -> DiffusionUNet:
     """A DiffusionUNet of width ``base`` holding ``state`` on ``device``."""
     model = DiffusionUNet(base, generator=torch.Generator())
@@ -178,8 +170,9 @@ def train_steps(model: DiffusionUNet, opt: torch.optim.Optimizer,
     span = torch.arange(cfg.patch, device=dev)
     losses = []
     for step in steps:
-        ys, xs, t, eps = (_to_device(a, dev) for a in _draw_train(seed, run, step, cfg,
-                                                                   (h, w)))
+        # asynchronous copies: the host draws the next step while the card works
+        ys, xs, t, eps = (host_to_device(a, dev)
+                          for a in _draw_train(seed, run, step, cfg, (h, w)))
         rows = (ys[:, None] + span).clamp(max=h - 1)[:, :, None]
         cols = (xs[:, None] + span).clamp(max=w - 1)[:, None, :]
         x0, wgt = img[rows, cols][:, None], keep[rows, cols][:, None]
@@ -212,9 +205,9 @@ def ddim_repaint(model: DiffusionUNet, img: torch.Tensor, keep: torch.Tensor,
     x0, keep4 = img[None, None], keep[None, None]
     hole = 1.0 - keep4
     draws = _draw_sample(seed, tuple(x0.shape), n)
-    x = _to_device(next(draws), dev)
+    x = host_to_device(next(draws), dev)
     for i, t in enumerate(ts):
-        noise = _to_device(next(draws), dev)
+        noise = host_to_device(next(draws), dev)
         x = keep4 * (sqrt_a[t] * x0 + sqrt_1ma[t] * noise) + hole * x
         eps = model(x, torch.full((1,), float(t), device=dev))
         x0_pred = ((x - sqrt_1ma[t] * eps) / sqrt_a[t]).clamp(-1.0, 1.0)

@@ -121,11 +121,13 @@ def _draw_init(kind: str, seed: int, attempt: int,
 
 
 def _init_models(kind: str, cfg, seed: int, attempt: int,
-                 shape: tuple[int, int], device) -> list[nn.Module]:
-    # the constructors' own draws are replaced by _draw_init's; a fresh
-    # generator leaves torch's global one untouched
+                 shape: tuple[int, int], device, states=None) -> list[nn.Module]:
+    # the constructors' own draws are replaced by _draw_init's, or by the
+    # given state dicts; a fresh generator leaves torch's global one untouched
     models = [cls(_dtype(cfg), generator=torch.Generator()) for cls in _MODELS[kind]]
-    for model, state in zip(models, _draw_init(kind, seed, attempt, shape)):
+    if states is None:
+        states = _draw_init(kind, seed, attempt, shape)
+    for model, state in zip(models, states):
         model.load_state_dict(state)
     return [m.to(device) for m in models]
 
@@ -143,10 +145,13 @@ def _adam(model: nn.Module, lr: float, betas: tuple[float, float],
 
 class UNetTrainer:
     """One per-clip U-Net training run: ``epoch()`` takes one Adam step,
-    ``restore()`` composites. Arguments as for ``unet_train_restore``."""
+    ``restore()`` composites. Arguments as for ``unet_train_restore``;
+    ``init_state``, a SimpleUNet state dict, replaces the seeded init
+    (a carried net, methods/unet_stream.py)."""
 
     def __init__(self, mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
-                 seed: int = 0, valid=None, composite_mask=None, device=None):
+                 seed: int = 0, valid=None, composite_mask=None, device=None,
+                 init_state=None):
         mag_norm = as_f32(mag_norm, device)
         dev = mag_norm.device
         tgt2d, (self.f0, self.t0) = _pad4(mag_norm)
@@ -165,7 +170,8 @@ class UNetTrainer:
         self.denom = self.vld.sum().clamp_min(1.0)
         self.cmsk2d = (msk2d if composite_mask is None
                        else _pad4(as_f32(composite_mask, dev), 1.0)[0])
-        (self.model,) = _init_models("unet", cfg, seed, 0, tuple(tgt2d.shape), dev)
+        (self.model,) = _init_models("unet", cfg, seed, 0, tuple(tgt2d.shape), dev,
+                                     None if init_state is None else [init_state])
         self.opt = _adam(self.model, cfg.lr, (0.9, 0.999), dev)
 
     def epoch(self) -> torch.Tensor:

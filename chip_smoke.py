@@ -13,8 +13,10 @@ Part 2's full (1025, 862), the U-Net forward, training and DDIM steps GPU
 against CPU on a crop, then timed and profiled at the full (1028, 864)),
 the ``restore`` facade (ar, nmf, unet, gan and diffusion on a 10 s, 44.1
 kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
-pipeline, and the Part 2 / Part 0 pipelines. Each phase prints one JSON
-line; any failed check raises. The last three lines are the kernel table,
+pipeline, the Part 2 / Part 0 pipelines, the windowed engine (ar over a
+60 s clip, window by window and batched per window class) and the
+streaming engine (linear, ar and the persistent U-Net fed 4,096-sample
+chunks). Each phase prints one JSON line; any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -23,6 +25,7 @@ a checkout of the repository. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -70,6 +73,23 @@ DIFF_PARAM_ATOL = 2e-5
 DDIM_ATOL = 5e-5
 # the facade's diffusion: per-clip training at its default step count
 FACADE_DIFFUSION_STEPS = 1500
+# the windowed and streaming engines: a 60 s clip, 2 s windows, the
+# facade's 50-sample composite margin. GPU against CPU by the facade's
+# agreement bound. Batched against window by window: a window restored as
+# a batch of one is bit-equal to its facade call, and the kernel's rows
+# do not depend on the batch, but the fit of a window's rows moves in the
+# last bits with the batch size (phase windowed shows each), and the
+# recurrence carries that. The bounds sit 4x and 7.7 dB outside the
+# reading on an H100 (2.58e-4 of peak, 87.7 dB)
+ENGINE_SECONDS = 60.0
+WINDOW_S = 2.0
+MARGIN = 50
+AR_AGREEMENT_DB = 60.0
+BATCH_ERR_OF_PEAK = 1e-3
+BATCH_AGREEMENT_DB = 80.0
+ENGINE_CPU_SECONDS = 10.0
+STREAM_CHUNK = 4096
+UNET_STREAM_SECONDS = 20.0
 
 
 def emit(obj) -> None:
@@ -221,9 +241,9 @@ def phase_kernel(dev):
     # the facade's shape (~736 rows of order 30, ~1024 steps), Part 2's
     # (2 rows of order 100, 88,200 steps) and Part 0's (2 rows of order 30,
     # 441 steps, 882-sample contexts), on fitted models
-    for n_gaps, p, context_len, steps, plain_reps in [(368, 30, 1000, 1024, 10),
-                                                      (1, 100, 5000, 88200, 1),
-                                                      (1, 30, 882, 441, 5)]:
+    for path, n_gaps, p, context_len, steps, plain_reps in [
+            ("facade", 368, 30, 1000, 1024, 10), ("part2", 1, 100, 5000, 88200, 1),
+            ("part0", 1, 30, 882, 441, 5)]:
         ctxs, w, b, std, valid, eps_tb = fitted_inputs(n_gaps, p, context_len,
                                                        steps, dev, seed=0)
         B = 2 * n_gaps
@@ -247,7 +267,8 @@ def phase_kernel(dev):
         torch.cuda.synchronize()
         bms, bound_by = bound_ms(B, p, steps)
         rows.append({
-            "B": B, "p": p, "steps": steps, "tolerance": "agreement SNR >= 60 dB",
+            "path": path, "B": B, "p": p, "steps": steps,
+            "tolerance": "agreement SNR >= 60 dB",
             "agreement_snr_db": snr,
             "max_abs_err": float((got - ref).abs().max()),
             "chunked_agreement_snr_db": agreement_snr_db(ref, chunked),
@@ -510,18 +531,24 @@ def phase_facade(dev, tmp: Path):
 
     profiled = device_profile(lambda: restore(damaged, SR, method="ar"))
 
-    # the same facade without texture, on the GPU and on the CPU (plain loop)
-    gpu = restore(damaged, SR, method="ar", texture=False)
-    cpu = restore(damaged, SR, method="ar", texture=False, device="cpu")
-    cpu_snr = agreement_snr_db(torch.as_tensor(cpu[~outside]),
-                               torch.as_tensor(gpu[~outside]))
-    if not cpu_snr >= 60.0:
-        raise AssertionError(f"GPU vs CPU facade: agreement {cpu_snr} dB < 60 dB")
+    # the facade on the GPU and on the CPU (plain loop), with the texture
+    # noise (the same draws on both: a seeded CPU generator) and without
+    agree = {}
+    for texture in (True, False):
+        gpu = restore(damaged, SR, method="ar", texture=texture)
+        cpu = restore(damaged, SR, method="ar", texture=texture, device="cpu")
+        agree[texture] = agreement_snr_db(torch.as_tensor(cpu[~outside]),
+                                          torch.as_tensor(gpu[~outside]))
+        if not agree[texture] >= 60.0:
+            raise AssertionError(f"GPU vs CPU facade (texture {texture}): "
+                                 f"agreement {agree[texture]} dB < 60 dB")
 
     emit({"phase": "facade", "samples": len(damaged), "gaps": len(gaps),
           "B": 2 * len(gaps), "max_len": max(e - s for s, e in gaps),
           "launches": launches, "cold_s": cold_s, "wall_s": wall_s,
-          "gpu_vs_cpu_agreement_snr_db": cpu_snr, "profile": profiled,
+          "gpu_vs_cpu_agreement_snr_db": agree[False],
+          "gpu_vs_cpu_agreement_snr_db_texture": agree[True],
+          "profile": profiled,
           "damaged": {"snr_db": float(snr_db(clean, damaged)),
                       "lsd_db": float(lsd_db(clean, damaged))},
           "restored": {"snr_db": float(snr_db(clean, out)),
@@ -888,7 +915,6 @@ def part1_kernel_row(dev, eq, gaps, cfg) -> dict:
     """The kernel at the shape Part 1's AR leg gives it: the leg's first
     pass fitted on the equalized clip, eps a seeded standard normal."""
     from audio_inpainting_torch.methods import ar
-    from audio_inpainting_torch.ops import ar_scan
 
     sig = torch.as_tensor(eq, device=dev)
     starts = torch.tensor([s for s, _ in gaps], device=dev)
@@ -900,21 +926,7 @@ def part1_kernel_row(dev, eq, gaps, cfg) -> dict:
     eps = torch.randn((B, steps), generator=gen, device=dev)
     args = (ar._state0(ctxs, cfg.order).contiguous(), w, b,
             std * cfg.texture_scale, valid.to(torch.float32), eps, steps)
-    got = ar_scan.ar_extrapolate(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = ar_scan.ar_extrapolate_ref(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    snr = agreement_snr_db(ref, got)
-    if not snr >= 60.0:
-        raise AssertionError(f"kernel vs plain at Part 1's shape: agreement {snr} dB")
-    bms, bound_by = bound_ms(B, cfg.order, steps)
-    return {"B": B, "p": cfg.order, "steps": steps, "agreement_snr_db": snr,
-            "max_abs_err": float((got - ref).abs().max()),
-            "ms": cuda_ms(lambda: ar_scan.ar_extrapolate(*args), calls=10),
-            "plain_ms": plain_ms, "plain_runs": 1, "chunked_ms": None,
-            "bound_ms": bms, "bound_by": bound_by}
+    return kernel_row("part1", args)
 
 
 def phase_pipelines(dev, tmp: Path):
@@ -966,6 +978,366 @@ def phase_pipelines(dev, tmp: Path):
     return {"part2": part2_launches, "part0": part0_launches}
 
 
+def engine_clip(tmp: Path):
+    """A 60 s synthetic clip with Part-1-style dropouts (ratio 0.25, 50-400
+    samples), through the int16 WAV chain; the gap mask widened by the
+    composite margin (the samples the engines may change)."""
+    from audio_inpainting_torch.corrupt import (find_gaps, random_dropout_mask,
+                                                synth_music_clip)
+    from audio_inpainting_torch.io import load_mono_normalized, save_wav_int16
+
+    clean = synth_music_clip(3, SR, ENGINE_SECONDS)
+    mask = random_dropout_mask(torch.Generator().manual_seed(3), len(clean),
+                               0.25, 50, 400).numpy()
+    path = str(tmp / "engine.wav")
+    save_wav_int16(clean * mask, SR, path)
+    damaged = load_mono_normalized(path)[1]
+    touched = np.zeros(len(damaged), bool)
+    for s, e in find_gaps(damaged, 0.01, 100):
+        touched[max(s - MARGIN, 0):e + MARGIN] = True
+    return clean, damaged, touched
+
+
+class Spy:
+    """Counts (and records the arguments of) the calls of ``module.name``
+    while in a ``with`` block; the wrapped function runs as it would."""
+
+    def __init__(self, module, name, keep=None):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls.append(self.keep(*args, **kwargs) if self.keep else None)
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def keep_kernel_args(*args):
+    """A Spy's record of one ar_extrapolate call: its arguments, copied."""
+    return [t.clone() for t in args[:6]] + [args[6]]
+
+
+def phase_windowed(dev, clip):
+    """restore_windowed(method="ar", window_s=2.0) over the 60 s clip,
+    window by window (one facade call each) and batched (one batch per
+    (size, gap-count bucket, max-len bucket) class); where the two part;
+    GPU against CPU on a 10 s crop, both ways; the kernel alone at every
+    shape either way gave it."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.methods.windowed import restore_windowed
+    from audio_inpainting_torch.metrics import lsd_db, snr_db
+    from audio_inpainting_torch.ops import ar_scan
+
+    clean, damaged, touched = clip
+    passes = api.AR_DEFAULTS["passes"]
+    kw = dict(method="ar", window_s=WINDOW_S, margin=MARGIN, seed=0)
+    runs = {}
+    for batch in (False, True):
+        # cold: the first call, which also records the kernel's arguments,
+        # the facade calls and the class batches
+        with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy, \
+                Spy(api, "restore", keep=lambda *a, **k: (a, k)) as facade_args, \
+                Spy(ar, "ar_restore_gaps_windows",
+                    keep=lambda *a, **k: (a, k)) as batch_args:
+            t0 = time.perf_counter()
+            restore_windowed(damaged, SR, batch_windows=batch, **kw)
+            cold_s = time.perf_counter() - t0
+        with Spy(api, "restore") as facade_calls, \
+                Spy(ar, "ar_restore_gaps_windows",
+                    keep=lambda s, g, *a, **k: (len(g), len(s[0]))) as batches:
+            ar_scan.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore_windowed(damaged, SR, batch_windows=batch, **kw)
+            wall_s = time.perf_counter() - t0
+            launches = ar_scan.LAUNCHES
+        units = len(batches.calls) if batch else len(facade_calls.calls)
+        if launches != passes * units:
+            raise AssertionError(f"windowed (batch {batch}): {launches} launches "
+                                 f"for {units} {'classes' if batch else 'windows'}")
+        if out.shape != damaged.shape or not np.array_equal(out[~touched],
+                                                             damaged[~touched]):
+            raise AssertionError(f"windowed (batch {batch}) changed samples "
+                                 "outside the gaps +- margin")
+        runs[batch] = {"out": out, "cold_s": cold_s, "wall_s": wall_s,
+                       "launches": launches, "units": units,
+                       "kernel_args": spy.calls, "classes": batches.calls,
+                       "facade_args": facade_args.calls,
+                       "batch_args": batch_args.calls}
+    seq, bat = runs[False], runs[True]
+    batch_err = float(np.abs(bat["out"] - seq["out"]).max() / np.abs(seq["out"]).max())
+    batch_snr = agreement_snr_db(torch.as_tensor(seq["out"][touched]),
+                                 torch.as_tensor(bat["out"][touched]))
+    if not (batch_err <= BATCH_ERR_OF_PEAK and batch_snr >= BATCH_AGREEMENT_DB):
+        raise AssertionError(f"windowed: batched vs sequential {batch_snr} dB, max "
+                             f"error {batch_err} of peak (bounds {BATCH_AGREEMENT_DB} "
+                             f"dB, {BATCH_ERR_OF_PEAK})")
+    effect = batch_size_effect(dev, max(bat["batch_args"], key=lambda c: len(c[0][1])),
+                               seq["facade_args"])
+    profiled = device_profile(lambda: restore_windowed(damaged, SR, batch_windows=True,
+                                                       **kw))
+
+    # GPU against CPU on the first 10 s (the CPU's plain loop), both ways
+    crop = damaged[:int(ENGINE_CPU_SECONDS * SR)]
+    hole = touched[:len(crop)]
+    vs_cpu = {}
+    for batch in (False, True):
+        gpu = restore_windowed(crop, SR, batch_windows=batch, **kw)
+        t0 = time.perf_counter()
+        cpu = restore_windowed(crop, SR, batch_windows=batch, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        snr = agreement_snr_db(torch.as_tensor(cpu[hole]), torch.as_tensor(gpu[hole]))
+        if not snr >= AR_AGREEMENT_DB:
+            raise AssertionError(f"windowed (batch {batch}) GPU vs CPU: agreement "
+                                 f"{snr} dB")
+        vs_cpu["batched" if batch else "sequential"] = {
+            "agreement_snr_db": snr, "cpu_wall_s": cpu_s}
+
+    rows = (kernel_rows("windowed", bat["kernel_args"])
+            + kernel_rows("windowed_sequential", seq["kernel_args"]))
+    emit({"phase": "windowed", "samples": len(damaged), "window_s": WINDOW_S,
+          "windows": seq["units"], "classes": bat["units"],
+          "class_shapes": [{"windows": w, "size": n} for w, n in bat["classes"]],
+          "launches_sequential": seq["launches"], "launches_batched": bat["launches"],
+          "cold_s_sequential": seq["cold_s"], "cold_s_batched": bat["cold_s"],
+          "wall_s_sequential": seq["wall_s"], "wall_s_batched": bat["wall_s"],
+          "batched_vs_sequential_err_of_peak": batch_err,
+          "batched_vs_sequential_agreement_snr_db": batch_snr,
+          "batch_size_effect": effect,
+          "gpu_vs_cpu_10s": vs_cpu, "profile_batched": profiled, "kernels": rows,
+          "restored": {"snr_db": float(snr_db(clean, bat["out"])),
+                       "lsd_db": float(lsd_db(clean, bat["out"]))},
+          "damaged": {"snr_db": float(snr_db(clean, damaged)),
+                      "lsd_db": float(lsd_db(clean, damaged))}})
+    return {"windowed": bat["launches"], "windowed_sequential": seq["launches"]}, rows
+
+
+def batch_size_effect(dev, batch_call, facade_calls) -> dict:
+    """Where batched and window by window part, on the first window of the
+    largest class: the window restored as a batch of one against its
+    facade call (the same code, so bit-equal); the class's batch against
+    that; the fit of the window's rows within the class's batch against
+    alone, and the kernel on the class's rows against on the window's rows
+    alone, both on pass 0's inputs. Raises unless the first and the kernel
+    are bit-equal."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+
+    (signals, gaps_list, cfg, seed), kwargs = batch_call
+    (fargs, fkw), = [c for c in facade_calls if np.array_equal(c[0][0], signals[0])]
+    facade = api.restore(*fargs, **fkw)
+    alone = ar.ar_restore_gaps_windows(signals[:1], gaps_list[:1], cfg, seed,
+                                       **kwargs).cpu().numpy()[0]
+    in_batch = ar.ar_restore_gaps_windows(signals, gaps_list, cfg, seed,
+                                          **kwargs).cpu().numpy()[0]
+
+    cfg, starts, ends, gpad, max_len = ar.windows_prep(gaps_list, cfg)
+    sig = torch.as_tensor(np.asarray(signals, np.float32), device=dev)
+    st, en = (torch.as_tensor(a, device=dev) for a in (starts, ends))
+    rows = 2 * gpad
+
+    def fit(k):   # pass 0 over the first k windows
+        ctxs, pads = ar._extract_contexts(sig[:k], st[:k], en[:k], cfg.context_len)
+        return ctxs, ar._fit_ridge_batched(ctxs, pads, cfg)
+
+    ctxs, (w, b, std, valid) = fit(len(gaps_list))
+    _, one = fit(1)
+    eps = ar._draw_eps(seed, 0, (max_len, rows), dev).T.contiguous()
+    args = (ar._state0(ctxs, cfg.order).contiguous(), w, b, std * cfg.texture_scale,
+            valid.to(torch.float32), eps.repeat(len(gaps_list), 1))
+    full = ar_scan.ar_extrapolate(*args, max_len)
+    head = ar_scan.ar_extrapolate(*(a[:rows].contiguous() for a in args), max_len)
+    res = {"windows": len(gaps_list), "rows_per_window": rows, "steps": max_len,
+           "alone_vs_facade_bit_equal": bool(np.array_equal(alone, facade)),
+           "in_batch_vs_alone_err_of_peak":
+               float(np.abs(in_batch - alone).max() / np.abs(alone).max()),
+           "fit_in_batch_vs_alone_rel_err": {
+               name: rel_err(x[:rows], y) for name, x, y in
+               (("w", w, one[0]), ("b", b, one[1]), ("noise_std", std, one[2]))},
+           "fit_valid_equal": bool(torch.equal(valid[:rows], one[3])),
+           "kernel_rows_bit_equal": bool(torch.equal(full[:rows], head))}
+    if not (res["alone_vs_facade_bit_equal"] and res["kernel_rows_bit_equal"]):
+        raise AssertionError(f"windowed: the batch of one or the kernel's rows "
+                             f"depend on more than the batch size: {res}")
+    return res
+
+
+def kernel_rows(path: str, calls) -> list[dict]:
+    """The kernel at each distinct shape a path gave it, on the first
+    arguments of that shape."""
+    first = {}
+    for args in calls:
+        first.setdefault((*args[1].shape, args[6]), args)
+    return [kernel_row(path, args) for _, args in sorted(first.items())]
+
+
+def kernel_row(path: str, args) -> dict:
+    """The kernel on the arguments a path gave it, against the plain loop
+    and the bound."""
+    from audio_inpainting_torch.ops import ar_scan
+
+    B, p = args[1].shape
+    steps = args[6]
+    got = ar_scan.ar_extrapolate(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ar_scan.ar_extrapolate_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    snr = agreement_snr_db(ref, got)
+    if not snr >= 60.0:
+        raise AssertionError(f"kernel vs plain on {path} at {(B, p, steps)}: {snr} dB")
+    bms, bound_by = bound_ms(B, p, steps)
+    return {"path": path, "B": B, "p": p, "steps": steps, "agreement_snr_db": snr,
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": cuda_ms(lambda: ar_scan.ar_extrapolate(*args), calls=10),
+            "plain_ms": plain_ms, "plain_runs": 1, "chunked_ms": None,
+            "bound_ms": bms, "bound_by": bound_by}
+
+
+def stream_run(damaged, method: str, chunk: int, dev, warm: bool,
+               kernel_args=None) -> dict:
+    """Feed ``damaged`` to a StreamRestorer in ``chunk``-sample pieces.
+
+    It first unloads the kernel's library (drops the caches of
+    ops.ar_scan._library and kernels.build.load), so that the first call
+    that needs the kernel loads it again and shows as a miss of
+    build.load: ``loads_warmup`` and ``loads_feed`` count the misses of
+    warmup and of the feeds. kernel_args: a list that gets the arguments
+    of every kernel call of the feeds."""
+    from audio_inpainting_torch.kernels import build
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.methods.streaming import StreamRestorer
+    from audio_inpainting_torch.ops import ar_scan
+
+    ar_scan._library.cache_clear()
+    build.load.cache_clear()
+    rest = StreamRestorer(SR, method=method, margin=MARGIN, device=dev)
+    warm_s = warmed = None
+    if warm:
+        t0 = time.perf_counter()
+        # the dropouts are at most 400 samples; the clip's 2 s windows
+        # hold up to ~90 runs: gap-count buckets 8, 32 and 128
+        warmed = rest.warmup(max_gap_s=0.01, max_runs=128)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    loads_warmup = build.load.cache_info().misses
+    windows, piece_ms = [], []
+    real_piece = rest._restore_piece
+
+    def timed_piece(*a):
+        windows.append(a[2])
+        t0 = time.perf_counter()
+        real_piece(*a)                     # syncs: the fill comes to the host
+        piece_ms.append((time.perf_counter() - t0) * 1e3)
+
+    rest._restore_piece = timed_piece
+    pending, parts = [], []
+    spy = Spy(ar, "ar_extrapolate", keep=keep_kernel_args)
+    with spy if kernel_args is not None else contextlib.nullcontext():
+        ar_scan.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(damaged), chunk):
+            parts.append(rest.feed(damaged[i:i + chunk]))
+            pending.append(rest.pending)
+        parts.append(rest.flush())
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if kernel_args is not None:
+        kernel_args.extend(spy.calls)
+    pend = np.asarray(pending, np.float64) / SR
+    return {"out": np.concatenate(parts), "wall_s": wall_s,
+            "realtime_factor": len(damaged) / SR / wall_s,
+            "pending_p50_s": float(np.percentile(pend, 50)),
+            "pending_p99_s": float(np.percentile(pend, 99)),
+            "warmup_s": warm_s, "warmup_windows": warmed,
+            "loads_warmup": loads_warmup,
+            "loads_feed": build.load.cache_info().misses - loads_warmup,
+            "first_window_ms": piece_ms[0] if piece_ms else None,
+            "window_ms_p50": float(np.median(piece_ms)) if piece_ms else None,
+            "windows": len(windows), "window_sizes": sorted(set(windows)),
+            "launches": ar_scan.LAUNCHES}
+
+
+def phase_stream(dev, clip):
+    """The 60 s clip through StreamRestorer in 4,096-sample chunks (~93 ms
+    at 44.1 kHz): linear, ar (after warmup), and the persistent U-Net on
+    the first 20 s (400 cold, 100 adapt epochs). linear and ar fed again,
+    without warmup, in 44,100-sample chunks must give the same bytes; ar
+    on the GPU against the CPU on the first 10 s; the kernel alone at
+    every shape the ar stream gave it. Warmup must load the kernel's
+    library and leave the feeds nothing to load, and without warmup the
+    feeds must load it once."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.metrics import lsd_db, snr_db
+
+    clean, damaged, touched = clip
+    res, launches, kernel_args = {}, 0, []
+    for method, n in (("linear", len(damaged)), ("ar", len(damaged)),
+                      ("unet", int(UNET_STREAM_SECONDS * SR))):
+        run = stream_run(damaged[:n], method, STREAM_CHUNK, dev, warm=True)
+        out = run.pop("out")
+        if out.shape != (n,) or not np.array_equal(out[~touched[:n]],
+                                                   damaged[:n][~touched[:n]]):
+            raise AssertionError(f"stream {method}: wrong length or changed "
+                                 "samples outside the gaps +- margin")
+        loads = (1, 0) if method == "ar" else (0, 0)
+        if (run["loads_warmup"], run["loads_feed"]) != loads:
+            raise AssertionError(f"stream {method}: warmup loaded the kernel "
+                                 f"{run['loads_warmup']} times and the feeds "
+                                 f"{run['loads_feed']} times, not {loads}")
+        if method != "unet":
+            again = stream_run(damaged, method, SR, dev, warm=False,
+                               kernel_args=kernel_args if method == "ar" else None)
+            if not np.array_equal(out, again.pop("out")):
+                raise AssertionError(f"stream {method}: 4,096- and 44,100-sample "
+                                     "chunks gave different bytes")
+            if again["loads_feed"] != loads[0]:
+                raise AssertionError(f"stream {method} without warmup: the feeds "
+                                     f"loaded the kernel {again['loads_feed']} times")
+            run["unwarmed_44100"] = {k: again[k] for k in (
+                "wall_s", "loads_feed", "first_window_ms", "window_ms_p50")}
+        want = api.AR_DEFAULTS["passes"] * run["windows"] if method == "ar" else 0
+        if run["launches"] != want:
+            raise AssertionError(f"stream {method}: {run['launches']} launches, "
+                                 f"not {want}")
+        if method == "ar":
+            launches = run["launches"]
+            run["gpu_vs_cpu_10s"] = stream_vs_cpu(damaged, touched, dev)
+        res[method] = {**run, "seconds": n / SR,
+                       "snr_db": float(snr_db(clean[:n], out)),
+                       "lsd_db": float(lsd_db(clean[:n], out))}
+    rows = kernel_rows("stream", kernel_args)
+    emit({"phase": "stream", "chunk": STREAM_CHUNK, "margin": MARGIN, **res,
+          "kernels": rows})
+    return {"stream": launches}, rows
+
+
+def stream_vs_cpu(damaged, touched, dev) -> dict:
+    """The ar stream over the first 10 s on the GPU and on the CPU (the
+    plain loop), both fed 4,096-sample chunks without warmup."""
+    crop = damaged[:int(ENGINE_CPU_SECONDS * SR)]
+    hole = touched[:len(crop)]
+    gpu = stream_run(crop, "ar", STREAM_CHUNK, dev, warm=False)["out"]
+    cpu_run = stream_run(crop, "ar", STREAM_CHUNK, "cpu", warm=False)
+    snr = agreement_snr_db(torch.as_tensor(cpu_run["out"][hole]),
+                           torch.as_tensor(gpu[hole]))
+    if not snr >= AR_AGREEMENT_DB:
+        raise AssertionError(f"stream ar GPU vs CPU: agreement {snr} dB")
+    return {"agreement_snr_db": snr, "cpu_wall_s": cpu_run["wall_s"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -981,7 +1353,12 @@ def main() -> int:
         part1_launches, part1_row = phase_part1(dev, Path(tmp))
         by_path = {"facade": launches, "part1": part1_launches,
                    **phase_pipelines(dev, Path(tmp))}
-    fitted = [r for r in rows if "ms" in r] + [part1_row]
+        clip = engine_clip(Path(tmp))
+        windowed_launches, windowed_rows = phase_windowed(dev, clip)
+        by_path.update(windowed_launches)
+        stream_launches, stream_rows = phase_stream(dev, clip)
+        by_path.update(stream_launches)
+    fitted = [r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",
@@ -993,7 +1370,7 @@ def main() -> int:
         "library_ms": None, "chunked_ms": facade["chunked_ms"],
         "launches_by_path": by_path,
         "shape": [facade["B"], facade["p"], facade["steps"]],
-        "shapes": [{"shape": [r["B"], r["p"], r["steps"]],
+        "shapes": [{"shape": [r["B"], r["p"], r["steps"]], "path": r["path"],
                     **{k: r[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
                                          "chunked_ms", "max_abs_err",
                                          "agreement_snr_db")}}

@@ -212,3 +212,61 @@ def test_texture_draws_are_seeded_per_pass():
     c = tar.ar_restore_gaps(x, [(1000, 1200)], cfg, 8, device="cpu").numpy()
     np.testing.assert_array_equal(a, b)
     assert not np.allclose(a[1000:1200], c[1000:1200])
+
+
+def test_texture_draws_come_from_a_cpu_generator():
+    """F1: the texture noise is drawn on a seeded CPU generator and copied,
+    so every device adds the same numbers. A draw for the meta device
+    (which has no generator of its own) shows that no device generator is
+    involved."""
+    mixed = np.random.SeedSequence([7, 1]).generate_state(1, np.uint64)[0]
+    want = torch.randn((40, 6), generator=torch.Generator().manual_seed(
+        int(mixed) >> 1))
+    torch.testing.assert_close(tar._draw_eps(7, 1, (40, 6), torch.device("cpu")),
+                               want, rtol=0, atol=0)
+    meta = tar._draw_eps(7, 1, (40, 6), torch.device("meta"))
+    assert meta.device.type == "meta" and tuple(meta.shape) == (40, 6)
+
+
+@pytest.mark.parametrize("order,chunk,device_type,want", [
+    (30, 0, "cuda", 0),              # the kernel
+    (tar.MAX_ORDER, 0, "cuda", 0),   # the kernel's largest order
+    (225, 0, "cuda", 256),           # above it: chunked at a multiple of 32
+    (256, 0, "cuda", 256),
+    (300, 0, "cuda", 320),
+    (256, 0, "cpu", 0),              # the CPU's plain loop takes any order
+    (100, 128, "cuda", 128),         # an asked-for chunk stands
+    (100, 128, "cpu", 128),
+])
+def test_extrapolation_routing(order, chunk, device_type, want):
+    """F2: orders above the CUDA kernel's limit take the chunked
+    companion-matrix form on the GPU, as JAX takes its plain scan above
+    its kernel's (JAX methods/ar.py:351)."""
+    assert tar.extrapolation_chunk(order, chunk, device_type) == want
+
+
+@pytest.mark.parametrize("texture", [False, True])
+def test_order_above_the_kernel_limit_takes_the_chunked_form(texture,
+                                                             monkeypatch):
+    """F2 end to end: order 256 routed as on the GPU (the chunked form at
+    chunk 256) against the CPU's plain loop; measured 133 dB apart."""
+    x = _signal()
+    gaps = [(2500, 2800), (4000, 4100)]
+    cfg = tar.ARConfig(order=256, alpha=0.5, texture=texture,
+                       context_len=1500, passes=1)
+    plain = tar.ar_restore_gaps(x, gaps, cfg, 3, device="cpu").numpy()
+    route = tar.extrapolation_chunk
+    routed = []
+
+    def as_on_gpu(order, chunk, device_type):
+        routed.append(route(order, chunk, "cuda"))
+        return routed[-1]
+
+    monkeypatch.setattr(tar, "extrapolation_chunk", as_on_gpu)
+    chunked = tar.ar_restore_gaps(x, gaps, cfg, 3, device="cpu").numpy()
+    assert routed == [256]
+    mask = np.ones(len(x), bool)
+    for s, e in gaps:
+        mask[s:e] = False
+    np.testing.assert_array_equal(chunked[mask], x[mask])
+    assert _agreement_snr(plain[~mask], chunked[~mask]) >= 60.0
