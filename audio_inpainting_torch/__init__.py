@@ -11,10 +11,14 @@ package:
                  per-clip U-Net and GAN training loops; the uniform
                  ``restore`` API; the windowed and streaming engines over it
   metrics/   L4  SNR / local SNR / LSD
-  pipelines/ L6  Part 0 / 1 / 2 scenario pipelines, the demo_assets contract
-  cli/           the ``restore`` (``--window-s``), ``stream``,
-                 ``part0``/``part1``/``part2``/``all`` and ``unet-gap``
-                 commands
+  parallel/  L5  batched per-clip training: G clips' U-Nets or GANs as
+                 one grouped net
+  pipelines/ L6  Part 0 / 1 / 2 scenario pipelines, the demo_assets
+                 contract, corpus serving
+  demo/          the live HTTP restore API
+  cli/           the ``restore`` (``--window-s``), ``stream``, ``serve``,
+                 ``score``, ``part0``/``part1``/``part2``/``all`` and
+                 ``unet-gap`` commands
   csrc/          CUDA C++ kernels for Hopper (sm_90a); kernels/ builds them
 
 Entry points run on the GPU unless called with device="cpu".

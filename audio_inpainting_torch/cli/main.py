@@ -7,6 +7,8 @@
   python -m audio_inpainting_torch restore long.wav fixed.wav --window-s 2
   python -m audio_inpainting_torch stream --sr 44100 --method ar --warmup \
       < damaged.f32 > fixed.f32
+  python -m audio_inpainting_torch serve damaged_dir/ restored_dir/ --method unet
+  python -m audio_inpainting_torch score restored_dir/ clean_dir/
   python -m audio_inpainting_torch part0|part1|part2|all --input clip.wav
   python -m audio_inpainting_torch unet-gap --input clip.wav --epochs 600
 
@@ -14,7 +16,11 @@
 facade (or, with ``--window-s``, with the windowed engine: only windows of
 that many seconds around the damage) and writes an int16 WAV. ``stream``
 restores raw little-endian float32 mono PCM from stdin to stdout with the
-streaming engine. ``part0``/``part1``/``part2``/``all`` run
+streaming engine. ``serve`` restores every WAV of a directory (unet and
+gan train all clips as one grouped net; ``--originals`` names the clean
+WAVs the gan trains against) and ``score`` gives the SNR and LSD of
+restored WAVs against the originals of the same names.
+``part0``/``part1``/``part2``/``all`` run
 the scenario pipelines, write the demo_assets set and print each leg's
 metrics; Part 2's diffusion leg samples from the committed corpus prior
 unless ``--diffusion-checkpoint`` names another (``none``: train per
@@ -134,6 +140,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "windows (default: everything up to the window cap)")
     _add_device(st)
 
+    ps = sub.add_parser("serve", help="batch-restore a directory of WAVs "
+                                      "(per-clip nets, trained as one batch)")
+    ps.add_argument("input_dir")
+    ps.add_argument("output_dir")
+    ps.add_argument("--method", default="unet",
+                    choices=["unet", "gan", "linear", "ar", "nmf", "gp",
+                             "diffusion"],
+                    help="unet/gan train all clips as one batch; the rest "
+                         "run the per-clip facade")
+    ps.add_argument("--epochs", type=int, default=400)
+    ps.add_argument("--originals", default=None,
+                    help="dir of clean WAVs, same names (GAN method only)")
+    ps.add_argument("--devices", type=int, default=1,
+                    help="GPUs to serve on (>= 1; one GPU is used)")
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--window-s", type=float, default=None,
+                    help="long-file mode: per clip, restore only fixed "
+                         "windows around the detected damage (unet windows "
+                         "batch per window size)")
+    ps.add_argument("--json", action="store_true")
+    _add_device(ps)
+
+    psc = sub.add_parser("score", help="SNR/LSD of restored WAVs vs originals")
+    psc.add_argument("restored_dir")
+    psc.add_argument("originals_dir")
+    psc.add_argument("--json", action="store_true")
+    _add_device(psc)
+
     p0 = sub.add_parser("part0", help="0.05 s segment: GP, AR, AR+texture, NMF")
     _add_common(p0)
     _add_gp(p0)
@@ -195,6 +229,21 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "stream":
         return _stream(args, t_start)
+    if args.cmd == "score":
+        _emit("score", _score(args.restored_dir, args.originals_dir, args.device),
+              args.json)
+        return 0
+    if args.cmd == "serve":
+        from ..pipelines.serve import run_serve
+
+        res = run_serve(args.input_dir, args.output_dir, method=args.method,
+                        epochs=args.epochs, originals_dir=args.originals,
+                        seed=args.seed, devices=args.devices,
+                        window_s=args.window_s, device=args.device)
+        _emit("serve", res if args.json else res["files"], args.json)
+        print(f"{res['clips']} clips -> {args.output_dir} "
+              f"({res['wall_s']}s)", file=sys.stderr)
+        return 0
     if args.cmd == "unet-gap":
         from ..pipelines.extras import run_unet_gap
 
@@ -226,6 +275,30 @@ def main(argv=None) -> int:
             diffusion_checkpoint=dckpt, device=args.device), args.json)
     print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
     return 0
+
+
+def _score(restored_dir: str, originals_dir: str, device) -> dict:
+    """Per restored WAV: SNR and LSD against the original of the same name
+    (both cut to the shorter), or "no original"."""
+    import glob
+
+    from ..io import load_mono_normalized
+    from ..metrics import lsd_db, snr_db
+
+    rows = {}
+    for path in sorted(glob.glob(os.path.join(restored_dir, "*.wav"))):
+        name = os.path.basename(path)
+        opath = os.path.join(originals_dir, name)
+        if not os.path.exists(opath):
+            rows[name] = "no original"
+            continue
+        _, got = load_mono_normalized(path)
+        _, ref = load_mono_normalized(opath)
+        n = min(len(got), len(ref))
+        rows[name] = {"snr_db": round(float(snr_db(ref[:n], got[:n], device)), 2),
+                      "lsd_db": round(float(lsd_db(ref[:n], got[:n], device=device)), 2),
+                      "samples": int(n)}
+    return rows
 
 
 def _stream(args, t_start: float) -> int:

@@ -16,6 +16,15 @@ PyTorch runs each epoch eagerly, op by op (the JAX package ran 100 epochs
 per device program with ``lax.scan``). ``UNetTrainer`` and ``GANTrainer``
 hold one training run, so a caller can step it epoch by epoch.
 
+A trainer takes one clip, (F, T), or a group of G clips of one shape,
+(G, F, T): G independent nets as one grouped net (models/unet.py,
+``groups=G``), one set of launches per epoch. Each clip keeps its own
+loss and denominator, and the nets train on the SUM of the per-clip
+losses, never their mean: Adam is element-wise, so one Adam over the
+grouped tensors is G independent Adams only while each clip's gradient is
+unscaled (a 1/G would change the steps that Adam takes from rounding
+noise, e.g. of the conv biases in front of each BatchNorm).
+
 Spectrograms pad F to a multiple of 4 and T to a multiple of 32, as in the
 JAX package (whose packed layout needs the 32): the pad cells enter the
 BatchNorm statistics and the receptive field of the edge columns, so the
@@ -38,7 +47,8 @@ from torch import nn
 from torch.func import functional_call
 
 from ..device import as_f32
-from ..models import Discriminator, GeneratorUNet, SimpleUNet, patchgan_map_shape
+from ..models import (Discriminator, GeneratorUNet, SimpleUNet, patchgan_map_shape,
+                      stack_states)
 
 
 @dataclass(frozen=True)
@@ -87,16 +97,37 @@ def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.bf16 else torch.float32
 
 
-def _nchw(x2d: torch.Tensor) -> torch.Tensor:
-    return x2d[None, None]
+def _clips(x: torch.Tensor) -> torch.Tensor:
+    """(G, F, T); one clip (F, T) is a group of one."""
+    return x[None] if x.dim() == 2 else x
 
 
-def _pad4(x2d: torch.Tensor, value: float = 0.0
+def _nchw(clips: torch.Tensor) -> torch.Tensor:
+    """(G, F, T) -> (1, G, F, T): clip g in channel g, never in the batch
+    dimension (models/unet.py)."""
+    return clips[None]
+
+
+def _pad4(x: torch.Tensor, value: float = 0.0
           ) -> tuple[torch.Tensor, tuple[int, int]]:
-    """F up to a multiple of 4 (two pools), T up to a multiple of 32; the
-    original (f, t) comes back."""
-    f, t = x2d.shape
-    return F.pad(x2d, (0, (-t) % 32, 0, (-f) % 4), value=value), (f, t)
+    """F up to a multiple of 4 (two pools), T up to a multiple of 32, over
+    the last two axes; the original (f, t) comes back."""
+    f, t = x.shape[-2:]
+    return F.pad(x, (0, (-t) % 32, 0, (-f) % 4), value=value), (f, t)
+
+
+def _seeds(seed, groups: int) -> list[int]:
+    """Per-clip init seeds: an int for one clip, else one seed per clip."""
+    seeds = [seed] if isinstance(seed, int) else [int(s) for s in seed]
+    if len(seeds) != groups:
+        raise ValueError(f"{len(seeds)} seeds for {groups} clips")
+    return seeds
+
+
+def _per_clip(x: torch.Tensor, single: bool) -> torch.Tensor:
+    """A per-clip result in the trainer input's form: clip 0's alone for
+    one (F, T) clip."""
+    return x[0] if single else x
 
 
 def _valid4(f: int, t: int, device) -> torch.Tensor:
@@ -120,13 +151,18 @@ def _draw_init(kind: str, seed: int, attempt: int,
     return [m.state_dict() for m in models]
 
 
-def _init_models(kind: str, cfg, seed: int, attempt: int,
+def _init_models(kind: str, cfg, seeds: list[int], attempt: int,
                  shape: tuple[int, int], device, states=None) -> list[nn.Module]:
+    """The models of ``kind`` grouped over len(seeds) clips, clip g from
+    ``_draw_init(kind, seeds[g], attempt, shape)``, or from ``states``
+    (one state dict per model, grouped already)."""
     # the constructors' own draws are replaced by _draw_init's, or by the
     # given state dicts; a fresh generator leaves torch's global one untouched
-    models = [cls(_dtype(cfg), generator=torch.Generator()) for cls in _MODELS[kind]]
+    models = [cls(_dtype(cfg), generator=torch.Generator(), groups=len(seeds))
+              for cls in _MODELS[kind]]
     if states is None:
-        states = _draw_init(kind, seed, attempt, shape)
+        per_clip = [_draw_init(kind, s, attempt, shape) for s in seeds]
+        states = [stack_states(list(clip_states)) for clip_states in zip(*per_clip)]
     for model, state in zip(models, states):
         model.load_state_dict(state)
     return [m.to(device) for m in models]
@@ -144,56 +180,65 @@ def _adam(model: nn.Module, lr: float, betas: tuple[float, float],
 
 
 class UNetTrainer:
-    """One per-clip U-Net training run: ``epoch()`` takes one Adam step,
-    ``restore()`` composites. Arguments as for ``unet_train_restore``;
-    ``init_state``, a SimpleUNet state dict, replaces the seeded init
-    (a carried net, methods/unet_stream.py)."""
+    """One per-clip U-Net training run, of one clip or of a group:
+    ``epoch()`` takes one Adam step, ``restore()`` composites. Arguments as
+    for ``unet_train_restore``, each (F, T) or (G, F, T); ``seed`` an int
+    for one clip, else one per clip. ``init_state``, a SimpleUNet state dict, replaces the
+    seeded init of one clip (a carried net, methods/unet_stream.py)."""
 
     def __init__(self, mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
-                 seed: int = 0, valid=None, composite_mask=None, device=None,
+                 seed=0, valid=None, composite_mask=None, device=None,
                  init_state=None):
         mag_norm = as_f32(mag_norm, device)
         dev = mag_norm.device
-        tgt2d, (self.f0, self.t0) = _pad4(mag_norm)
-        msk2d, _ = _pad4(as_f32(mask, dev), 1.0)  # pad = kept: out of the masked loss
-        vld2d = _valid4(self.f0, self.t0, dev)
+        self.single = mag_norm.dim() == 2
+        tgt, (self.f0, self.t0) = _pad4(_clips(mag_norm))
+        # pad = kept: out of the masked loss
+        msk, _ = _pad4(_clips(as_f32(mask, dev)), 1.0)
+        vld = _valid4(self.f0, self.t0, dev).expand_as(tgt)
         if valid is not None:
-            vld2d = vld2d * _pad4(as_f32(valid, dev))[0]
+            vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
         self.cfg = cfg
-        self.tgt2d = tgt2d
-        self.inp = _nchw(tgt2d * msk2d)
-        self.tgt = _nchw(tgt2d)
-        self.vld = _nchw(vld2d)
-        self.inv = (1.0 - _nchw(msk2d)) * self.vld
+        self.tgt_clips = tgt
+        self.inp = _nchw(tgt * msk)
+        self.tgt = _nchw(tgt)
+        self.vld = _nchw(vld)
+        self.inv = (1.0 - _nchw(msk)) * self.vld
         # a clip whose every column is damaged has sum(valid) == 0: the
         # loss is then 0 with zero gradients, not 0/0
-        self.denom = self.vld.sum().clamp_min(1.0)
-        self.cmsk2d = (msk2d if composite_mask is None
-                       else _pad4(as_f32(composite_mask, dev), 1.0)[0])
-        (self.model,) = _init_models("unet", cfg, seed, 0, tuple(tgt2d.shape), dev,
+        self.denom = self.vld.sum(dim=(0, 2, 3)).clamp_min(1.0)
+        self.cmsk = (msk if composite_mask is None
+                     else _pad4(_clips(as_f32(composite_mask, dev)), 1.0)[0])
+        seeds = _seeds(seed, tgt.shape[0])
+        (self.model,) = _init_models("unet", cfg, seeds, 0, tuple(tgt.shape[1:]), dev,
                                      None if init_state is None else [init_state])
         self.opt = _adam(self.model, cfg.lr, (0.9, 0.999), dev)
 
     def epoch(self) -> torch.Tensor:
-        """One Adam step; returns the loss before it (a device scalar)."""
+        """One Adam step; returns the loss before it, per clip (G,) (a
+        device scalar for one (F, T) clip)."""
         self.opt.zero_grad()
         out = self.model(self.inp)
         if self.cfg.masked_loss:
-            loss = ((out * self.inv - self.tgt * self.inv) ** 2).sum() / self.denom
+            diff = out * self.inv - self.tgt * self.inv
         else:
-            loss = (((out - self.tgt) * self.vld) ** 2).sum() / self.denom
-        loss.backward()
+            diff = (out - self.tgt) * self.vld
+        loss = (diff ** 2).sum(dim=(0, 2, 3)) / self.denom
+        loss.sum().backward()
         self.opt.step()
-        return loss.detach()
+        return _per_clip(loss.detach(), self.single)
 
     @torch.no_grad()
     def restore(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(composite (F, T), prediction (F, T)). The eval forward sees the
-        composite-masked input: only the real damage hidden, synthetic
-        training stripes visible again as context."""
-        pred = self.model(_nchw(self.tgt2d * self.cmsk2d))[0, 0]
-        final = self.tgt2d * self.cmsk2d + pred * (1.0 - self.cmsk2d)
-        return final[:self.f0, :self.t0], pred[:self.f0, :self.t0]
+        """(composite, prediction), each (G, F, T) ((F, T) for one clip).
+        The eval forward sees the composite-masked input: only the real
+        damage hidden, synthetic training stripes visible again as
+        context."""
+        seen = self.tgt_clips * self.cmsk
+        pred = self.model(_nchw(seen))[0]
+        final = seen + pred * (1.0 - self.cmsk)
+        return (_per_clip(final[:, :self.f0, :self.t0], self.single),
+                _per_clip(pred[:, :self.f0, :self.t0], self.single))
 
 
 def unet_train_restore(mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
@@ -223,13 +268,18 @@ def unet_train_restore(mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
 
 
 def _bce(logits: torch.Tensor, target: float) -> torch.Tensor:
-    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, target))
+    """Mean BCE over each clip's own PatchGAN map: (1, G, h, w) -> (G,)."""
+    return F.binary_cross_entropy_with_logits(
+        logits, torch.full_like(logits, target), reduction="none").mean(dim=(0, 2, 3))
 
 
 class GANTrainer:
-    """One per-clip GAN training run: ``epoch()`` runs one D step and one G
-    step, ``restore()`` the final inference. Arguments as for
-    ``gan_train_restore``; ``attempt`` picks the init draw (1: the retry).
+    """One per-clip GAN training run, of one clip or of a group: ``epoch()``
+    runs one D step and one G step, ``restore()`` the final inference.
+    Arguments as for ``gan_train_restore``, each (F, T) or (G, F, T);
+    ``seed`` an int for one clip, else one per clip; ``attempt`` picks the init draw (1:
+    the retry). ``valid`` (optional, 1 = real content) takes cells out of
+    the L1 term, its denominator and the readout's column rule.
 
     The epoch order is the reference's: one G forward, reused; a D step on
     real, then on the detached composite (D's running statistics chain
@@ -244,19 +294,24 @@ class GANTrainer:
     """
 
     def __init__(self, input_norm, real_norm, mask,
-                 cfg: GANTrainConfig = GANTrainConfig(), seed: int = 0,
-                 attempt: int = 0, device=None):
-        inp2d, (self.f0, self.t0) = _pad4(as_f32(input_norm, device), -1.0)
-        dev = inp2d.device
-        self.inp = _nchw(inp2d)
-        self.real = _nchw(_pad4(as_f32(real_norm, dev), -1.0)[0])
-        self.msk = _nchw(_pad4(as_f32(mask, dev), 1.0)[0])   # pad = kept
-        self.vld = _nchw(_valid4(self.f0, self.t0, dev))
+                 cfg: GANTrainConfig = GANTrainConfig(), seed=0,
+                 attempt: int = 0, device=None, valid=None):
+        input_norm = as_f32(input_norm, device)
+        dev = input_norm.device
+        self.single = input_norm.dim() == 2
+        inp, (self.f0, self.t0) = _pad4(_clips(input_norm), -1.0)
+        vld = _valid4(self.f0, self.t0, dev).expand_as(inp)
+        if valid is not None:
+            vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
+        self.inp = _nchw(inp)
+        self.real = _nchw(_pad4(_clips(as_f32(real_norm, dev)), -1.0)[0])
+        self.msk = _nchw(_pad4(_clips(as_f32(mask, dev)), 1.0)[0])   # pad = kept
+        self.vld = _nchw(vld)
         self.cfg = cfg
         self.inv = 1.0 - self.msk
-        self.rec_inv = self.inv * self.vld    # L1 only over the unpadded extent
-        self.rec_denom = self.vld.sum()
-        shape = tuple(self.inp.shape[2:])
+        self.rec_inv = self.inv * self.vld    # L1 only over the valid extent
+        self.rec_denom = self.vld.sum(dim=(0, 2, 3))
+        shape = tuple(inp.shape[1:])
         map_shape = patchgan_map_shape(*shape)
         self.d_live = min(map_shape) > 0
         if not self.d_live:
@@ -265,7 +320,8 @@ class GANTrainer:
                 f"discriminator (logits map {map_shape} is empty); the "
                 "adversarial term is 0 and the generator trains on the L1 "
                 "term only", stacklevel=2)
-        self.g, self.d = _init_models("gan", cfg, seed, attempt, shape, dev)
+        seeds = _seeds(seed, inp.shape[0])
+        self.g, self.d = _init_models("gan", cfg, seeds, attempt, shape, dev)
         self.g_params = list(self.g.parameters())
         self.g_opt = _adam(self.g, cfg.lr, (cfg.b1, cfg.b2), dev)
         self.d_opt = _adam(self.d, cfg.lr, (cfg.b1, cfg.b2), dev)
@@ -273,7 +329,8 @@ class GANTrainer:
                     if cfg.ema_decay > 0.0 else None)
 
     def epoch(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """One epoch; returns (d_loss, g_loss) as device scalars."""
+        """One epoch; returns (d_loss, g_loss) per clip, each (G,) (device
+        scalars for one (F, T) clip)."""
         cfg = self.cfg
         fake = self.g(self.inp, True)
         completed = self.inp * self.msk + fake * self.inv
@@ -281,42 +338,47 @@ class GANTrainer:
             d_loss = 0.5 * (_bce(self.d(self.real, True), 1.0)
                             + _bce(self.d(completed.detach(), True), 0.0))
             self.d_opt.zero_grad()
-            d_loss.backward()
+            d_loss.sum().backward()
             self.d_opt.step()
             adv = _bce(self.d(completed, True), 1.0)
         else:
-            d_loss = adv = torch.zeros((), device=fake.device)
-        rec = (fake * self.rec_inv - self.real * self.rec_inv).abs().sum() / self.rec_denom
+            d_loss = adv = fake.new_zeros(fake.shape[1])
+        rec = ((fake * self.rec_inv - self.real * self.rec_inv).abs().sum(dim=(0, 2, 3))
+               / self.rec_denom)
         g_loss = cfg.l1_weight * rec + cfg.adv_weight * adv
         self.g_opt.zero_grad()
-        g_loss.backward(inputs=self.g_params)
+        g_loss.sum().backward(inputs=self.g_params)
         self.g_opt.step()
         if self.ema is not None:
             with torch.no_grad():
                 torch._foreach_mul_(self.ema, cfg.ema_decay)
                 torch._foreach_add_(self.ema, self.g_params, alpha=1.0 - cfg.ema_decay)
-        return d_loss.detach(), g_loss.detach()
+        return (_per_clip(d_loss.detach(), self.single),
+                _per_clip(g_loss.detach(), self.single))
 
     @torch.no_grad()
     def _eval(self, params: dict[str, torch.Tensor]) -> torch.Tensor:
         return functional_call(self.g, params, (self.inp, False))
 
     def restore(self) -> torch.Tensor:
-        """The composite (F, T) of the final eval-mode inference."""
+        """The composite of the final eval-mode inference, (G, F, T) ((F, T)
+        for one clip)."""
         params = dict(self.g.named_parameters())
         ema = None if self.ema is None else dict(zip(params, self.ema))
         fake = gan_readout_fake(self._eval, params, ema, self.msk, self.vld, self.cfg)
         final = self.inp * self.msk + fake * (1.0 - self.msk)
-        return final[0, 0, :self.f0, :self.t0]
+        return _per_clip(final[0, :, :self.f0, :self.t0], self.single)
 
-    def hole_l1(self, final: torch.Tensor) -> float:
-        """Mean |final - real| over the hole: the mode-collapse signature;
-        0 where the mask hides nothing."""
-        hole = (1.0 - self.msk[0, 0, :self.f0, :self.t0])
-        hole_sum = float(hole.sum())
-        real = self.real[0, 0, :self.f0, :self.t0]
-        return (float(((final - real) * hole).abs().sum()) / hole_sum
-                if hole_sum > 0.0 else 0.0)
+    @torch.no_grad()
+    def hole_l1(self, final: torch.Tensor) -> torch.Tensor:
+        """Mean |final - real| over each clip's valid hole cells, the
+        mode-collapse signature, per clip ((G,), a scalar for one clip);
+        0 where the mask hides nothing. ``final`` as ``restore`` returns
+        it."""
+        hole = (self.inv * self.vld)[0, :, :self.f0, :self.t0]
+        real = self.real[0, :, :self.f0, :self.t0]
+        err = ((_clips(final) - real) * hole).abs().sum(dim=(1, 2))
+        return _per_clip(err / hole.sum(dim=(1, 2)).clamp_min(1e-9), self.single)
 
 
 def gan_readout_fake(eval_fn, params: dict, ema: dict | None,
@@ -342,6 +404,18 @@ def gan_readout_fake(eval_fn, params: dict, ema: dict | None,
     return fake
 
 
+def _gan_run(input_norm, real_norm, mask, cfg: GANTrainConfig, seed, attempt: int,
+             device, valid=None):
+    """One training run: (trainer, composite, (d_losses, g_losses)), the
+    losses stacked over the epochs."""
+    trainer = GANTrainer(input_norm, real_norm, mask, cfg, seed, attempt, device, valid)
+    hist = [trainer.epoch() for _ in range(cfg.epochs)]
+    final = trainer.restore()
+    empty = final.new_zeros((0, *final.shape[:-2]))
+    return trainer, final, (torch.stack([d for d, _ in hist]) if hist else empty,
+                            torch.stack([g for _, g in hist]) if hist else empty)
+
+
 def gan_train_restore(input_norm, real_norm, mask,
                       cfg: GANTrainConfig = GANTrainConfig(), seed: int = 0,
                       device=None):
@@ -352,16 +426,8 @@ def gan_train_restore(input_norm, real_norm, mask,
     kept run, and attempts 2 where ``retry_l1`` made it retrain on the
     second draw, else 1. Runs where ``as_f32`` puts ``input_norm``.
     """
-    def train_once(attempt: int):
-        trainer = GANTrainer(input_norm, real_norm, mask, cfg, seed, attempt, device)
-        hist = [trainer.epoch() for _ in range(cfg.epochs)]
-        final = trainer.restore()
-        empty = torch.zeros(0, device=final.device)
-        return trainer, final, (torch.stack([d for d, _ in hist]) if hist else empty,
-                                torch.stack([g for _, g in hist]) if hist else empty)
-
-    trainer, final, hist = train_once(0)
-    if cfg.retry_l1 > 0.0 and trainer.hole_l1(final) > cfg.retry_l1:
-        _, final, hist = train_once(1)
+    trainer, final, hist = _gan_run(input_norm, real_norm, mask, cfg, seed, 0, device)
+    if cfg.retry_l1 > 0.0 and float(trainer.hole_l1(final)) > cfg.retry_l1:
+        _, final, hist = _gan_run(input_norm, real_norm, mask, cfg, seed, 1, device)
         return final, hist, 2
     return final, hist, 1

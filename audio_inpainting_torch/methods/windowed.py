@@ -124,22 +124,18 @@ def restore_windowed(damaged, sr: int, method: str = "ar", *,
     reference's 50-400-sample dropouts; for gaps beyond ~1000 samples pass
     the part-2 scale (order=100, context_len=5000) or use a spectral method.
 
-    batch_windows (method "ar"): restore the windows of each (size,
-    gap-count bucket, max-len bucket) class as ONE batch
-    (methods.ar.ar_restore_gaps_windows): one fit and one kernel launch per
-    pass and class instead of per window. Every window keeps the
-    sequential path's seed, so batched == per-window up to the batch's
-    summation order (pinned at 1e-5 in the tests). The U-Net's window
-    batch waits for the batched per-clip trainer.
+    batch_windows (methods "ar" and "unet"): restore the windows of a
+    class as ONE batch. ar: one class per (size, gap-count bucket, max-len
+    bucket) (methods.ar.ar_restore_gaps_windows), one fit and one kernel
+    launch per pass and class instead of per window. unet: one class per
+    window size, one grouped net per class (parallel/batch.py
+    ``restore_clips_unet``). Every window keeps the sequential path's
+    seed and preprocessing, so batched == per-window up to the batch's
+    summation order (the tests pin the bounds).
     """
     from .. import api
     from ..corrupt import find_gaps
 
-    if batch_windows and method == "unet":
-        raise NotImplementedError(
-            "batch_windows=True for method='unet' needs the batched per-clip "
-            "U-Net trainer (restore_clips_unet, ROADMAP Queue 1 item 16a); "
-            "use batch_windows=False")
     dev = resolve_device(device)
     damaged = np.asarray(damaged, np.float32)
     n = len(damaged)
@@ -188,7 +184,10 @@ def restore_windowed(damaged, sr: int, method: str = "ar", *,
                     np.pad(orig[w0:hi], (0, size - (hi - w0)), mode="reflect"))
         prepped.append((w0, size, group, hi, sub, sub_orig, local, mask))
 
-    if batch_windows and method == "ar" and len(prepped) > 1:
+    if batch_windows and method == "unet" and len(prepped) > 1:
+        restored_all = _restore_windows_unet_batched(prepped, seed=seed,
+                                                     device=dev, **cfg_kwargs)
+    elif batch_windows and method == "ar" and len(prepped) > 1:
         restored_all = _restore_windows_ar_batched(prepped, seed=seed,
                                                    device=dev, **cfg_kwargs)
     else:
@@ -256,4 +255,53 @@ def _restore_windows_ar_batched(prepped, *, seed: int, device, **cfg_kwargs):
                                       device=device).cpu().numpy()
         for j, i in enumerate(idxs):
             results[i] = out[j]
+    return results
+
+
+def _restore_windows_unet_batched(prepped, *, seed: int, device, **cfg_kwargs):
+    """Batch the U-Net over same-size windows via ``restore_clips_unet``.
+
+    Every window gets what the facade's U-Net branch (api.py) computes for
+    it: the peak normalization, the keep mask from ``mask_to_bad_columns``
+    on the window's sample mask, and the stripes of a CPU generator seeded
+    with ``seed``, the same for every window, as is the init seed. Each
+    size class is one grouped net; every window is then iSTFT'd with its
+    own phase. Returns the restored windows in ``prepped`` order.
+    """
+    import torch
+
+    from ..corrupt import mask_to_bad_columns, training_stripes
+    from ..ops import istft, magphase, polar, stft, torch_stft_config
+    from ..parallel.batch import restore_clips_unet
+    from .neural import UNetTrainConfig
+
+    scfg = torch_stft_config(1024, 256)
+    by_size: dict[int, list[int]] = {}
+    for i, (_, size, *_rest) in enumerate(prepped):
+        by_size.setdefault(size, []).append(i)
+
+    results: list = [None] * len(prepped)
+    for size, idxs in by_size.items():
+        norms, phases, peaks, keeps, trains = [], [], [], [], []
+        for i in idxs:
+            sub, sample_mask = prepped[i][4], prepped[i][7]
+            mag, phase = magphase(stft(torch.tensor(sub, device=device), scfg))
+            bad = mask_to_bad_columns(sample_mask, mag.shape[1], scfg.hop, device=device)
+            keep = torch.as_tensor(~bad, dtype=torch.float32,
+                                   device=device)[None, :].expand(mag.shape)
+            syn = training_stripes(torch.Generator().manual_seed(seed), mag.shape[1], ~bad)
+            peak = mag.max().clamp_min(1e-12)     # all-silent window: no NaN
+            norms.append(mag / peak)
+            phases.append(phase)
+            peaks.append(peak)
+            keeps.append(keep)
+            trains.append(keep * torch.as_tensor(syn, device=device)[None, :])
+        keepb = torch.stack(keeps)[..., None]
+        final, _ = restore_clips_unet(
+            torch.stack(norms)[..., None], torch.stack(trains)[..., None],
+            UNetTrainConfig(**cfg_kwargs), [seed] * len(idxs), valid_batch=keepb,
+            composite_mask_batch=keepb, device=device)
+        for j, i in enumerate(idxs):
+            results[i] = istft(polar(final[j, ..., 0] * peaks[j], phases[j]), scfg,
+                               size).cpu().numpy()
     return results

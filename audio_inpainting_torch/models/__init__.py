@@ -1,7 +1,7 @@
 from .diffusion_unet import DiffusionUNet, ResBlock, timestep_embedding
 from .unet import (BN_MOMENTUM, BatchNorm, Discriminator, GeneratorUNet,
                    SimpleUNet, init_flax_style, pad_to_multiple,
-                   patchgan_map_shape)
+                   patchgan_map_shape, stack_states, unstack_states)
 
 __all__ = [
     "BN_MOMENTUM",
@@ -14,5 +14,7 @@ __all__ = [
     "init_flax_style",
     "pad_to_multiple",
     "patchgan_map_shape",
+    "stack_states",
     "timestep_embedding",
+    "unstack_states",
 ]

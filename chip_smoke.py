@@ -14,9 +14,13 @@ against CPU on a crop, then timed and profiled at the full (1028, 864)),
 the ``restore`` facade (ar, nmf, unet, gan and diffusion on a 10 s, 44.1
 kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
 pipeline, the Part 2 / Part 0 pipelines, the windowed engine (ar over a
-60 s clip, window by window and batched per window class) and the
+60 s clip, window by window and batched per window class), the
 streaming engine (linear, ar and the persistent U-Net fed 4,096-sample
-chunks). Each phase prints one JSON line; any failed check raises. The last three lines are the kernel table,
+chunks) and the corpus path (phase ``serve``: ``run_serve`` over four
+10 s clips with ar, the U-Net and the GAN, the batched per-clip trainers
+against single clips and timed against the group size, the U-Net's
+window batch, and the live HTTP API). Each phase prints one JSON line;
+any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -26,12 +30,17 @@ a checkout of the repository. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import http.server
+import io
 import itertools
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +99,35 @@ BATCH_AGREEMENT_DB = 80.0
 ENGINE_CPU_SECONDS = 10.0
 STREAM_CHUNK = 4096
 UNET_STREAM_SECONDS = 20.0
+# the corpus path: four 10 s clips at 44.1 kHz, (513, 1723) magnitudes
+# padded to (516, 1728), the full U-Net and GAN; the GAN at 300 of its
+# 1500 epochs, as the facade's (FACADE_GAN_EPOCHS). Group sizes of the
+# epoch sweep: the GAN's bf16 epoch at G = 8 would hold ~11 GB.
+#
+# Batch against single: the CPU tests' bounds against the JAX package
+# (NEURAL_LOSS_RTOL, UNET_COMPOSITE_TOL, GAN_COMPOSITE_TOL; a bf16 GAN fill
+# 1 dB, ROADMAP Queue 3; the U-Net window batch 60 dB), held at the
+# CPU tests' epochs (U-Net 10, GAN 5: tests/test_torch_neural.py), with
+# cuDNN's deterministic kernels. Training amplifies rounding: the grouped
+# and the plain kernels round differently, and cuDNN's default kernels
+# differ from run to run, so over longer runs the single path parts from
+# a rerun of itself (tools/torch_batch_spread.py measures that spread).
+# The serve GAN's 300 epochs and the window batch's 100 run with the
+# default kernels and are printed. Each grouped epoch's peak memory is
+# held under the footprint that sizes the groups (parallel/batch.py,
+# clip_bytes).
+SERVE_CLIPS = 4
+SERVE_UNET_EPOCHS = 400
+SERVE_GAN_EPOCHS = 300
+BF16_GAN_FILL_DB = 1.0
+UNET_HELD_EPOCHS = 10
+GAN_HELD_EPOCHS = 5
+BATCH_VS_SINGLE_CLIPS = (0, 3)
+UNET_GROUP_SIZES = (1, 2, 4, 8)
+GAN_GROUP_SIZES = (1, 2, 4)
+WINDOW_BATCH_SECONDS = 20.0
+WINDOW_BATCH_EPOCHS = 100
+WINDOW_BATCH_AGREEMENT_DB = 60.0
 
 
 def emit(obj) -> None:
@@ -1338,6 +1376,450 @@ def stream_vs_cpu(damaged, touched, dev) -> dict:
     return {"agreement_snr_db": snr, "cpu_wall_s": cpu_run["wall_s"]}
 
 
+def serve_corpus(tmp: Path):
+    """SERVE_CLIPS 10 s clips, synth_music_clip(10 + i), with the facade's
+    Part-1-style dropouts, as damaged and clean int16 WAVs of the same
+    names in two directories."""
+    from audio_inpainting_torch.corrupt import random_dropout_mask, synth_music_clip
+    from audio_inpainting_torch.io import save_wav_int16
+
+    din, dclean = tmp / "serve_in", tmp / "serve_clean"
+    din.mkdir()
+    dclean.mkdir()
+    for i in range(SERVE_CLIPS):
+        clean = synth_music_clip(10 + i, SR, 10.0)
+        mask = random_dropout_mask(torch.Generator().manual_seed(10 + i), len(clean),
+                                   0.25, 50, 400).numpy()
+        save_wav_int16(clean * mask, SR, str(din / f"clip{i}.wav"))
+        save_wav_int16(clean, SR, str(dclean / f"clip{i}.wav"))
+    return din, dclean
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic kernels inside the block: each path then
+    repeats itself bit for bit, so a comparison shows only what differs
+    between the two paths."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def timed(fn):
+    """(fn's result, wall seconds to the end of its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_serve(dev, tmp: Path, clip):
+    """The corpus path at full width (serve_corpus): run_serve with ar (each
+    WAV the facade's bytes, 2 launches per clip), the U-Net (400 fp32
+    epochs, scored by the CLI's ``score``) and the GAN (300 bf16 epochs,
+    each fill against its single-clip run); the batched trainers against
+    single clips; ms per epoch against the group size G; the U-Net's
+    window batch against window by window; the live HTTP API."""
+    din, dclean = serve_corpus(tmp)
+    ar_res, ar_rows, ar_launches = serve_ar(din, tmp)
+    unet = serve_unet(din, dclean, tmp)
+    gan = serve_gan(dev, din, dclean, tmp)
+    vs_single = batch_vs_single(dev)
+    sweep = group_sweep(dev)
+    windows = window_batch(clip)
+    live, live_rows, live_launches = live_api(dev, tmp)
+    emit({"phase": "serve", "clips": SERVE_CLIPS, "seconds_per_clip": 10.0,
+          "ar": ar_res, "unet": unet, "gan": gan, "batch_vs_single": vs_single,
+          "ms_per_epoch_by_group": sweep, "unet_window_batch": windows,
+          "live": live, "kernels": ar_rows + live_rows})
+    return {"serve": ar_launches, "live": live_launches}, ar_rows + live_rows
+
+
+def serve_ar(din: Path, tmp: Path):
+    """run_serve(method="ar"): one facade call per clip, each WAV
+    byte-equal to the facade's restore of that clip on the card, clean
+    samples bit-identical, 2 launches per clip."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.corrupt import find_gaps
+    from audio_inpainting_torch.io import load_mono_normalized, save_wav_int16
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.pipelines.serve import run_serve
+
+    dout = tmp / "serve_ar"
+    cold_s = timed(lambda: run_serve(str(din), str(dout), method="ar"))[1]
+    per_clip, real = [], api.restore
+
+    def counted(*a, **k):
+        before = ar_scan.LAUNCHES
+        out = real(*a, **k)
+        per_clip.append(ar_scan.LAUNCHES - before)
+        return out
+
+    api.restore = counted
+    try:
+        with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy:
+            ar_scan.LAUNCHES = 0
+            res, wall_s = timed(lambda: run_serve(str(din), str(dout), method="ar"))
+            launches = ar_scan.LAUNCHES
+    finally:
+        api.restore = real
+    if per_clip != [2] * SERVE_CLIPS or launches != 2 * SERVE_CLIPS:
+        raise AssertionError(f"serve ar: launches {launches}, per clip {per_clip}")
+    for name in sorted(res["files"]):
+        _, x = load_mono_normalized(str(din / name))
+        y = api.restore(x, SR, method="ar")
+        outside = np.ones(len(x), bool)
+        for s, e in find_gaps(x, 0.01, 100):
+            outside[s:e] = False
+        save_wav_int16(y, SR, str(tmp / "serve_facade.wav"))
+        if not (np.array_equal(y[outside], x[outside]) and (dout / name).read_bytes()
+                == (tmp / "serve_facade.wav").read_bytes()):
+            raise AssertionError(f"serve ar: {name} is not the facade's restore, or "
+                                 "changed clean samples")
+    return ({"cold_s": cold_s, "wall_s": wall_s, "launches": launches,
+             "launches_per_clip": per_clip, "files": res["files"],
+             "byte_equal_to_facade": True},
+            kernel_rows("serve", spy.calls), launches)
+
+
+def score_dirs(restored: Path, clean: Path) -> dict:
+    """The CLI's ``score`` of a directory against the clean clips."""
+    from audio_inpainting_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(["score", str(restored), str(clean), "--json"])
+    rows = json.loads(buf.getvalue())["score"]
+    if not all(isinstance(r, dict) and np.isfinite([r["snr_db"], r["lsd_db"]]).all()
+               for r in rows.values()):
+        raise AssertionError(f"score: {rows}")
+    return rows
+
+
+def serve_unet(din: Path, dclean: Path, tmp: Path) -> dict:
+    """run_serve(method="unet") at 400 fp32 epochs: the wall (one run, so
+    cuDNN's first calls at the grouped shapes are in it), the peak memory,
+    the most clips a group could hold now, and the CLI's score of the
+    damaged and the restored clips."""
+    from audio_inpainting_torch.parallel.batch import clip_bytes, group_cap
+    from audio_inpainting_torch.pipelines.serve import run_serve
+
+    dout = tmp / "serve_unet"
+    torch.cuda.reset_peak_memory_stats()
+    res, wall_s = timed(lambda: run_serve(str(din), str(dout), method="unet",
+                                          epochs=SERVE_UNET_EPOCHS))
+    frames = next(iter(res["files"].values()))["frames"]
+    return {"epochs": SERVE_UNET_EPOCHS, "wall_s": wall_s, "files": res["files"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "group_cap_now": group_cap(clip_bytes("unet", False, 513, frames),
+                                       torch.device("cuda")),
+            "score_damaged": score_dirs(din, dclean),
+            "score_restored": score_dirs(dout, dclean)}
+
+
+def fill_snr_db(final, real, mask) -> float:
+    """SNR of a fill against the real magnitudes over the hidden cells."""
+    final, real, mask = (torch.as_tensor(a).double().cpu() for a in (final, real, mask))
+    hole = mask == 0
+    return float(10 * torch.log10((real[hole] ** 2).sum()
+                                  / ((final[hole] - real[hole]) ** 2).sum()))
+
+
+def serve_gan(dev, din: Path, dclean: Path, tmp: Path) -> dict:
+    """run_serve(method="gan", 300 epochs): serve's normalization and
+    config (bf16, the gap-scoped EMA; the retry arms only at 1500) into
+    restore_clips_gan, whose inputs and output are kept. On those inputs
+    each clip alone through gan_train_restore, from the same init: at 300
+    epochs printed; at GAN_HELD_EPOCHS, with cuDNN's deterministic
+    kernels, the batch's fill may fall BF16_GAN_FILL_DB short of the single
+    run's."""
+    import audio_inpainting_torch.parallel as parallel
+    from audio_inpainting_torch.methods import neural
+    from audio_inpainting_torch.pipelines.serve import run_serve
+
+    seen, real = {}, parallel.restore_clips_gan
+
+    def keep(norm, rnorm, masks, cfg, seed, **kw):
+        out = real(norm, rnorm, masks, cfg, seed, **kw)
+        seen.update(norm=norm, rnorm=rnorm, masks=masks, cfg=cfg, seed=seed, kw=kw,
+                    out=out[0])
+        return out
+
+    parallel.restore_clips_gan = keep
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, wall_s = timed(lambda: run_serve(
+            str(din), str(tmp / "serve_gan"), method="gan", epochs=SERVE_GAN_EPOCHS,
+            originals_dir=str(dclean)))
+    finally:
+        parallel.restore_clips_gan = real
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seeds = parallel.clip_seeds(seen["seed"], SERVE_CLIPS)
+    f, t = 513, next(iter(res["files"].values()))["frames"]
+    clip_args = [[seen[k][g, :f, :t] for k in ("norm", "rnorm", "masks")]
+                 for g in range(SERVE_CLIPS)]
+    held_cfg = dataclasses.replace(seen["cfg"], epochs=GAN_HELD_EPOCHS)
+    with cudnn_deterministic():
+        held_out, _ = real(seen["norm"], seen["rnorm"], seen["masks"], held_cfg,
+                           seen["seed"], **seen["kw"])
+        held_one = [neural.gan_train_restore(*args, held_cfg, seeds[g], device=dev)[0]
+                    for g, args in enumerate(clip_args)]
+    clips, single_s = [], 0.0
+    for g, args in enumerate(clip_args):
+        (one, _, _), s = timed(lambda: neural.gan_train_restore(
+            *args, seen["cfg"], seeds[g], device=dev))
+        single_s += s
+        clips.append({
+            "fill_snr_db_batch": fill_snr_db(seen["out"][g, :f, :t], *args[1:]),
+            "fill_snr_db_single": fill_snr_db(one, *args[1:]),
+            "held_fill_snr_db_batch": fill_snr_db(held_out[g, :f, :t], *args[1:]),
+            "held_fill_snr_db_single": fill_snr_db(held_one[g], *args[1:])})
+    if not all(c["held_fill_snr_db_batch"] >= c["held_fill_snr_db_single"] - BF16_GAN_FILL_DB
+               for c in clips):
+        raise AssertionError(f"serve gan at {GAN_HELD_EPOCHS} epochs: a batched fill is "
+                             f"more than {BF16_GAN_FILL_DB} dB under its single run: {clips}")
+    return {"epochs": SERVE_GAN_EPOCHS, "default_epochs": 1500, "bf16": True,
+            "wall_s": wall_s, "peak_memory_gb": peak,
+            "single_clip_runs_wall_s": single_s, "held_epochs": GAN_HELD_EPOCHS,
+            "clips": clips,
+            "tolerance": f"at {GAN_HELD_EPOCHS} epochs, batch fill >= single fill - "
+                         f"{BF16_GAN_FILL_DB} dB; at {SERVE_GAN_EPOCHS} printed"}
+
+
+def corpus_spectrograms(n: int):
+    """n Part-1-style inputs: the normalized (513, 1723) magnitudes of the
+    serve corpus's clean clips (cycled), each with its own frame mask."""
+    from audio_inpainting_torch.corrupt import random_frame_mask, synth_music_clip
+    from audio_inpainting_torch.ops import magphase, stft, torch_stft_config
+
+    mags, masks = [], []
+    for i in range(n):
+        clip = torch.as_tensor(synth_music_clip(10 + i % SERVE_CLIPS, SR, 10.0))
+        mag, _ = magphase(stft(clip, torch_stft_config(1024, 256)))
+        mags.append(mag / mag.max())
+        masks.append(random_frame_mask(torch.Generator().manual_seed(i), *mag.shape))
+    return torch.stack(mags), torch.stack(masks)
+
+
+def batch_vs_single(dev) -> dict:
+    """restore_clips_unet and restore_clips_gan (fp32) on the four corpus
+    spectrograms against unet_train_restore and gan_train_restore on
+    clips 0 and 3, from the same init, at UNET_HELD_EPOCHS and
+    GAN_HELD_EPOCHS with cuDNN's deterministic kernels."""
+    from audio_inpainting_torch.methods import neural
+    from audio_inpainting_torch.parallel import restore_clips_gan, restore_clips_unet
+
+    mags, masks = corpus_spectrograms(SERVE_CLIPS)
+    inp, real, msk = gan_inputs(mags, masks)
+    seeds = [100 + g for g in range(SERVE_CLIPS)]
+
+    def unet(epochs):
+        cfg = neural.UNetTrainConfig(epochs=epochs)
+        out, loss = restore_clips_unet(mags[..., None], masks[..., None], cfg, seeds,
+                                       device=dev)
+        singles = {g: neural.unet_train_restore(mags[g], masks[g], cfg, seeds[g],
+                                                device=dev)
+                   for g in BATCH_VS_SINGLE_CLIPS}
+        return {g: {"unet_loss_rel_err": rel_err(loss[g], one[2][-1]),
+                    "unet_composite_err": rel_err(out[g, ..., 0], one[0])}
+                for g, one in singles.items()}
+
+    def gan(epochs):
+        cfg = neural.GANTrainConfig(epochs=epochs, ema_decay=0.99, ema_scope="gap")
+        out, (dl, gl) = restore_clips_gan(inp, real, msk, cfg, seeds, device=dev)
+        singles = {g: neural.gan_train_restore(inp[g], real[g], msk[g], cfg, seeds[g],
+                                               device=dev)
+                   for g in BATCH_VS_SINGLE_CLIPS}
+        return {g: {"gan_d_loss_rel_err": rel_err(dl[g], one[1][0][-1]),
+                    "gan_g_loss_rel_err": rel_err(gl[g], one[1][1][-1]),
+                    "gan_composite_err": rel_err(out[g], one[0])}
+                for g, one in singles.items()}
+
+    with cudnn_deterministic():
+        held = {"unet": unet(UNET_HELD_EPOCHS), "gan": gan(GAN_HELD_EPOCHS)}
+    for g in BATCH_VS_SINGLE_CLIPS:
+        for key, tol in (("unet_loss_rel_err", NEURAL_LOSS_RTOL),
+                         ("unet_composite_err", UNET_COMPOSITE_TOL)):
+            if not held["unet"][g][key] <= tol:
+                raise AssertionError(f"batch vs single, clip {g}, {UNET_HELD_EPOCHS} "
+                                     f"epochs: {key} {held['unet'][g][key]} > {tol}")
+        for key, tol in (("gan_d_loss_rel_err", NEURAL_LOSS_RTOL),
+                         ("gan_g_loss_rel_err", NEURAL_LOSS_RTOL),
+                         ("gan_composite_err", GAN_COMPOSITE_TOL)):
+            if not held["gan"][g][key] <= tol:
+                raise AssertionError(f"batch vs single, clip {g}, {GAN_HELD_EPOCHS} "
+                                     f"epochs: {key} {held['gan'][g][key]} > {tol}")
+    return {"dtype": "fp32, TF32 off",
+            "tolerance": f"losses within {NEURAL_LOSS_RTOL:g} relative; composites "
+                         f"within {UNET_COMPOSITE_TOL:g} (U-Net) and "
+                         f"{GAN_COMPOSITE_TOL:g} (GAN) of their peak, at "
+                         f"{UNET_HELD_EPOCHS} (U-Net) and {GAN_HELD_EPOCHS} (GAN) epochs",
+            "held_epochs": {"unet": UNET_HELD_EPOCHS, "gan": GAN_HELD_EPOCHS},
+            "held": held}
+
+
+def group_sweep(dev) -> dict:
+    """ms per epoch of G clips as one grouped net (CUDA events, 20 epochs a
+    round, the median of 3 rounds after 3 warm epochs), device calls and
+    busy share over 10 profiled epochs, peak memory; each set against
+    G x the G = 1 epoch. The peak that a group adds may not pass G clips'
+    footprint (parallel/batch.py, clip_bytes), which sizes serving's
+    groups."""
+    from audio_inpainting_torch.methods import neural
+    from audio_inpainting_torch.parallel.batch import clip_bytes
+
+    mags, masks = corpus_spectrograms(max(UNET_GROUP_SIZES))
+    mags, masks = mags.to(dev), masks.to(dev)
+    makers = {
+        "unet_fp32": ("unet", False, UNET_GROUP_SIZES, lambda m, k, s: neural.UNetTrainer(
+            m, k, neural.UNetTrainConfig(bf16=False), s)),
+        "unet_bf16": ("unet", True, UNET_GROUP_SIZES, lambda m, k, s: neural.UNetTrainer(
+            m, k, neural.UNetTrainConfig(bf16=True), s)),
+        "gan_bf16": ("gan", True, GAN_GROUP_SIZES, lambda m, k, s: neural.GANTrainer(
+            *gan_inputs(m, k), neural.GANTrainConfig(bf16=True, ema_decay=0.99,
+                                                     ema_scope="gap"), s))}
+    out = {}
+    for name, (kind, bf16, sizes, make) in makers.items():
+        rows = []
+        per_clip = clip_bytes(kind, bf16, *mags.shape[1:])
+        for g in sizes:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trainer = make(mags[:g], masks[:g], list(range(g)))
+            for _ in range(3):
+                trainer.epoch()
+            ms = cuda_ms(trainer.epoch, calls=20, rounds=3, warmup=0)
+            n_prof = 10
+            prof = device_profile(lambda: [trainer.epoch() for _ in range(n_prof)],
+                                  top=4, kernel="conv")
+            single = rows[0]["ms_per_epoch"] if rows else ms
+            rows.append({"G": g, "ms_per_epoch": ms, "ms_per_clip_epoch": ms / g,
+                         "vs_G_single_epochs": ms / (g * single),
+                         "device_calls_per_epoch": prof["device_calls"] / n_prof,
+                         "device_busy_ms_per_epoch": prof["device_busy_ms"] / n_prof,
+                         "busy_share_unprofiled": prof["device_busy_ms"] / n_prof / ms,
+                         "top": prof["top"],
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "added_peak_over_footprint":
+                             (torch.cuda.max_memory_allocated() - base) / (g * per_clip)})
+            del trainer
+            if not rows[-1]["added_peak_over_footprint"] <= 1.0:
+                raise AssertionError(f"{name}, G = {g}: the epoch's peak passes G clips' "
+                                     f"footprint: {rows[-1]}")
+        out[name] = {"clip_footprint_gb": per_clip / 1e9, "rows": rows}
+    return out
+
+
+def window_batch(clip) -> dict:
+    """restore_windowed(method="unet") over the engine clip's first 20 s,
+    window by window (one facade call each) and batched (one
+    restore_clips_unet per window size): at 100 epochs the walls, clean
+    samples bit-identical both ways, the agreement of batched and window
+    by window; at UNET_HELD_EPOCHS, with cuDNN's deterministic kernels,
+    batched against window by window >= 60 dB over the damage."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.methods.windowed import restore_windowed
+    from audio_inpainting_torch.parallel import batch
+
+    _, damaged, touched = clip
+    n = int(WINDOW_BATCH_SECONDS * SR)
+    damaged, touched = damaged[:n], touched[:n]
+
+    def run(batched, epochs):
+        kw = dict(method="unet", window_s=WINDOW_S, margin=MARGIN, seed=0, epochs=epochs)
+        with Spy(api, "restore") as facade_calls, \
+                Spy(batch, "restore_clips_unet",
+                    keep=lambda m, *a, **k: int(m.shape[0])) as classes:
+            out, wall_s = timed(lambda: restore_windowed(damaged, SR,
+                                                         batch_windows=batched, **kw))
+        if out.shape != damaged.shape or not np.array_equal(out[~touched],
+                                                             damaged[~touched]):
+            raise AssertionError(f"unet window batch ({batched}, {epochs} epochs): "
+                                 "changed samples outside the gaps +- margin")
+        return {"out": out, "wall_s": wall_s, "facade_calls": len(facade_calls.calls),
+                "class_sizes": classes.calls}
+
+    def agree(a, b):
+        return agreement_snr_db(torch.as_tensor(a["out"][touched]),
+                                torch.as_tensor(b["out"][touched]))
+
+    seq, bat = run(False, WINDOW_BATCH_EPOCHS), run(True, WINDOW_BATCH_EPOCHS)
+    with cudnn_deterministic():
+        held_snr = agree(run(False, UNET_HELD_EPOCHS), run(True, UNET_HELD_EPOCHS))
+    if not held_snr >= WINDOW_BATCH_AGREEMENT_DB:
+        raise AssertionError(f"unet window batch vs window by window at "
+                             f"{UNET_HELD_EPOCHS} epochs: {held_snr} dB")
+    return {"seconds": WINDOW_BATCH_SECONDS, "window_s": WINDOW_S,
+            "epochs": WINDOW_BATCH_EPOCHS, "windows": seq["facade_calls"],
+            "class_sizes": bat["class_sizes"], "wall_s_window_by_window": seq["wall_s"],
+            "wall_s_batched": bat["wall_s"], "agreement_snr_db": agree(seq, bat),
+            "held_epochs": UNET_HELD_EPOCHS, "held_agreement_snr_db": held_snr,
+            "tolerance": f">= {WINDOW_BATCH_AGREEMENT_DB} dB at {UNET_HELD_EPOCHS} "
+                         f"epochs; at {WINDOW_BATCH_EPOCHS} printed"}
+
+
+def live_api(dev, tmp: Path):
+    """The live API on an ephemeral port, in a thread: ar on the facade's
+    10 s clip, ar with window_s=2 on the 60 s engine clip, and linear;
+    each response byte-equal to the facade's (or the windowed engine's)
+    restore through the int16 chain; latency and launches per request."""
+    from audio_inpainting_torch import api
+    from audio_inpainting_torch.demo.live import make_handler
+    from audio_inpainting_torch.io import load_mono_normalized, save_wav_int16
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.methods.windowed import restore_windowed
+    from audio_inpainting_torch.ops import ar_scan
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), make_handler(str(tmp), dev))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/api/restore"
+    requests = [("ar", tmp / "damaged.wav", "method=ar", None),
+                ("ar_window_2s", tmp / "engine.wav", f"method=ar&window_s={WINDOW_S}",
+                 WINDOW_S),
+                ("linear", tmp / "damaged.wav", "method=linear", None)]
+    rows, calls, total = {}, [], 0
+    try:
+        for name, path, query, window_s in requests:
+            body = path.read_bytes()
+            with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy, \
+                    Spy(api, "restore") as facade_calls:
+                ar_scan.LAUNCHES = 0
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"{url}?{query}", data=body, method="POST"), timeout=600) as r:
+                    got = r.read()
+                latency_ms = (time.perf_counter() - t0) * 1e3
+                launches = ar_scan.LAUNCHES
+            calls.extend(spy.calls)
+            total += launches
+            _, x = load_mono_normalized(str(path))
+            method = query.split("&")[0].split("=")[1]
+            want = (restore_windowed(x, SR, method=method, window_s=window_s)
+                    if window_s else api.restore(x, SR, method=method))
+            save_wav_int16(want, SR, str(tmp / "live_want.wav"))
+            if got != (tmp / "live_want.wav").read_bytes():
+                raise AssertionError(f"live {name}: the response is not the "
+                                     "facade's restore")
+            expect = 2 * len(facade_calls.calls) if method == "ar" else 0
+            if launches != expect:
+                raise AssertionError(f"live {name}: {launches} launches, not {expect}")
+            rows[name] = {"samples": len(x), "latency_ms": latency_ms,
+                          "launches": launches, "facade_calls": len(facade_calls.calls),
+                          "byte_equal": True}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    return rows, kernel_rows("live", calls), total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1358,7 +1840,10 @@ def main() -> int:
         by_path.update(windowed_launches)
         stream_launches, stream_rows = phase_stream(dev, clip)
         by_path.update(stream_launches)
-    fitted = [r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
+        serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
+        by_path.update(serve_launches)
+    fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
+              + serve_rows)
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",

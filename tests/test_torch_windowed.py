@@ -253,11 +253,96 @@ def test_windowed_wants_a_gpu_unless_told(monkeypatch):
         twin.restore_windowed(dmg, sr, method="linear")
 
 
-def test_windowed_unet_batch_raises():
-    _, dmg, sr, gaps = _long_clip()
-    with pytest.raises(NotImplementedError, match="16a"):
-        twin.restore_windowed(dmg, sr, method="unet", batch_windows=True,
-                              gaps=gaps, epochs=2, device="cpu")
+# three windows: two of 4,000 samples, one doubled to 8,000 (two classes)
+UNET_GAPS = ((10_000, 10_400), (30_000, 30_500), (50_000, 53_500))
+UNET_KW = dict(method="unet", window_s=0.5, epochs=3, seed=1)
+# the U-Net's window batch against window by window: the same STFTs and
+# phases, the grouped net against the single ones (measured: 128.5 dB
+# over the gaps, 7.5e-8 of peak)
+UNET_BATCH_AGREEMENT_DB = 80.0
+UNET_BATCH_ERR_OF_PEAK = 1e-4
+# the batched composites against the JAX package's (tests/test_torch_neural.py's
+# bound for a composite mask that differs from the training mask)
+UNET_COMPOSITE_RTOL_OF_PEAK = 5e-4
+
+
+def _windowed_unet(dmg, sr, gaps, batch):
+    return twin.restore_windowed(dmg, sr, batch_windows=batch, gaps=gaps,
+                                 device="cpu", **UNET_KW)
+
+
+def test_windowed_unet_batch_equals_window_by_window(monkeypatch):
+    """batch_windows=True with unet: one restore_clips_unet per window
+    size, every window with the facade's preprocessing and seed; the same
+    restoration as one facade call per window, clean samples untouched."""
+    from audio_inpainting_torch.parallel import batch as tbatch
+
+    _, dmg, sr, gaps = _long_clip(gaps=UNET_GAPS)
+    seq = _windowed_unet(dmg, sr, gaps, False)
+    classes = []
+    real = tbatch.restore_clips_unet
+
+    def spy(mags, *a, **k):
+        classes.append(tuple(mags.shape))
+        return real(mags, *a, **k)
+
+    monkeypatch.setattr(tbatch, "restore_clips_unet", spy)
+    bat = _windowed_unet(dmg, sr, gaps, True)
+    assert sorted(c[0] for c in classes) == [1, 2]
+    hole = _in_gaps(len(dmg), gaps)
+    near = np.convolve(hole, np.ones(101), "same") > 0      # the 50-sample ramps
+    np.testing.assert_array_equal(bat[~near], dmg[~near])
+    err = np.abs(bat - seq).max() / np.abs(seq).max()
+    assert err <= UNET_BATCH_ERR_OF_PEAK, err
+    assert _agreement_db(seq[hole], bat[hole]) >= UNET_BATCH_AGREEMENT_DB
+    for s, e in gaps:
+        assert np.abs(bat[s:e]).max() > 1e-4
+
+
+def _jax_unet_init(kind, seed, attempt, shape):
+    from audio_inpainting_tpu.methods import neural as jneural
+    from audio_inpainting_tpu.models.packed_unet import PackedSimpleUNet
+    from audio_inpainting_torch.convert import flax_to_state_dict
+
+    x = jax.numpy.zeros((1, *shape, 1), jax.numpy.float32)
+    return [flax_to_state_dict(jneural._jit_init(PackedSimpleUNet(),
+                                                 jax.random.PRNGKey(seed), x)["params"])]
+
+
+def test_windowed_unet_batch_matches_jax(monkeypatch):
+    """_restore_windows_unet_batched of both packages, with the JAX
+    stripes and init (PRNGKey(seed) for every window) injected: the
+    batched composite of a class of two windows. (The fills inside the gaps take the phase
+    of the damaged STFT there, rounding noise that differs between the
+    packages, so the composites are compared, not the samples.)"""
+    import audio_inpainting_tpu.parallel.batch as jbatch
+    from audio_inpainting_tpu.corrupt import training_stripes as jax_stripes
+    import audio_inpainting_torch.corrupt as tcorrupt
+    import audio_inpainting_torch.methods.neural as tneural
+    from audio_inpainting_torch.parallel import batch as tbatch
+
+    seed = UNET_KW["seed"]
+    monkeypatch.setattr(tneural, "_draw_init", _jax_unet_init)
+    monkeypatch.setattr(tcorrupt, "training_stripes", lambda gen, n, intact: np.asarray(
+        jax_stripes(jax.random.PRNGKey(seed), n, intact)))
+    composites = {jbatch: [], tbatch: []}
+    for module, got in composites.items():
+        real = module.restore_clips_unet
+
+        def spy(*a, _real=real, _got=got, **k):
+            out = _real(*a, **k)
+            _got.append(np.asarray(out[0]))
+            return out
+
+        monkeypatch.setattr(module, "restore_clips_unet", spy)
+    # one class of two windows: each class is one more JAX compile
+    _, dmg, sr, gaps = _long_clip(gaps=UNET_GAPS[:2])
+    jwin.restore_windowed(dmg, sr, batch_windows=True, gaps=gaps, **UNET_KW)
+    _windowed_unet(dmg, sr, gaps, True)
+    want, got = composites[jbatch], composites[tbatch]
+    assert [w.shape for w in want] == [g.shape for g in got] and got[0].shape[0] == 2
+    for w, g in zip(want, got):
+        assert np.abs(g - w).max() <= UNET_COMPOSITE_RTOL_OF_PEAK * np.abs(w).max()
 
 
 AR_KW = dict(method="ar", window_s=0.5, order=16, context_len=400)
