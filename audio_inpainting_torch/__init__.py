@@ -3,22 +3,27 @@
 It grows slice by slice beside the JAX package, which stays the reference.
 It imports torch and numpy and nothing of JAX. Layering, as in the JAX
 package:
-  io/        L0  WAV read/write, normalization, PNG rendering
+  io/        L0  WAV read/write, normalization, PNG rendering, the
+                 waveform figures (matplotlib, where installed)
   ops/       L1  STFT/iSTFT (torch.stft), the AR recurrence kernel wrapper
   corrupt/   L2  mask generators + blind damage detectors
-  models/    L3  the spectrogram U-Net, GAN generator and discriminator
+  models/    L3  the spectrogram U-Net, GAN generator and discriminator,
+                 the diffusion U-Net; models/sd/ Stable Diffusion v1 /
+                 Riffusion (UNet2DCondition, AutoencoderKL, PLMS, the
+                 masked-latent inpaint, the checkpoint loader)
   methods/   L3  linear, AR, masked NMF, OLA gain equalization, GP, and the
                  per-clip U-Net and GAN training loops; the uniform
-                 ``restore`` API; the windowed and streaming engines over it
+                 ``restore`` API; the windowed and streaming engines over it;
+                 Riffusion restore from a local checkpoint
   metrics/   L4  SNR / local SNR / LSD
   parallel/  L5  batched per-clip training: G clips' U-Nets or GANs as
                  one grouped net
   pipelines/ L6  Part 0 / 1 / 2 scenario pipelines, the demo_assets
                  contract, corpus serving
-  demo/          the live HTTP restore API
+  demo/          the artifact gallery and the live HTTP restore API
   cli/           the ``restore`` (``--window-s``), ``stream``, ``serve``,
-                 ``score``, ``part0``/``part1``/``part2``/``all`` and
-                 ``unet-gap`` commands
+                 ``score``, ``part0``/``part1``/``part2``/``all``,
+                 ``unet-gap``, ``check`` and ``demo`` commands
   csrc/          CUDA C++ kernels for Hopper (sm_90a); kernels/ builds them
 
 Entry points run on the GPU unless called with device="cpu".

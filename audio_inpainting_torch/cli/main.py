@@ -11,6 +11,8 @@
   python -m audio_inpainting_torch score restored_dir/ clean_dir/
   python -m audio_inpainting_torch part0|part1|part2|all --input clip.wav
   python -m audio_inpainting_torch unet-gap --input clip.wav --epochs 600
+  python -m audio_inpainting_torch check [--assets-dir demo_assets]
+  python -m audio_inpainting_torch demo [--assets-dir demo_assets] [--device cpu]
 
 ``restore`` reads the WAV through the int16 chain, restores it with the
 facade (or, with ``--window-s``, with the windowed engine: only windows of
@@ -25,6 +27,9 @@ the scenario pipelines, write the demo_assets set and print each leg's
 metrics; Part 2's diffusion leg samples from the committed corpus prior
 unless ``--diffusion-checkpoint`` names another (``none``: train per
 clip). ``unet-gap`` runs the U-Net overfit demo (pipelines/extras.py).
+``check`` verifies the demo_assets contract (every file of ASSET_REGISTRY
+exists; exit 1 and the list of missing files otherwise) and ``demo``
+serves the gallery and the live restore API (demo/app.py).
 Everything runs on the GPU unless ``--device cpu`` is given.
 """
 
@@ -188,6 +193,14 @@ def build_parser() -> argparse.ArgumentParser:
     pu = sub.add_parser("unet-gap", help="main5_UNet_gap overfit demo variant")
     _add_common(pu)
     pu.add_argument("--epochs", type=int, default=600)
+
+    pd = sub.add_parser("demo", help="launch the demo UI over the assets")
+    pd.add_argument("--assets-dir", default="demo_assets")
+    pd.add_argument("--share", action="store_true")
+    _add_device(pd)
+
+    pc = sub.add_parser("check", help="verify the demo asset contract")
+    pc.add_argument("--assets-dir", default="demo_assets")
     return ap
 
 
@@ -207,6 +220,13 @@ def _emit(name: str, results: dict, as_json: bool):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "check":
+        return _check(args.assets_dir)
+    if args.cmd == "demo":
+        from ..demo.app import launch
+
+        launch(args.assets_dir, share=args.share, device=args.device)
+        return 0
     t_start = time.time()
     if args.cmd == "restore":
         from ..api import restore
@@ -274,6 +294,24 @@ def main(argv=None) -> int:
             diffusion_cfg=DiffusionConfig(train_steps=args.diffusion_steps),
             diffusion_checkpoint=dckpt, device=args.device), args.json)
     print(f"total wall: {time.time() - t_start:.1f}s", file=sys.stderr)
+    return 0
+
+
+def _check(assets_dir: str) -> int:
+    """0 when every artifact of ASSET_REGISTRY exists under ``assets_dir``;
+    else 1, after listing the missing files."""
+    from ..pipelines.registry import ASSET_REGISTRY
+
+    missing = [os.path.join(assets_dir, rel)
+               for methods in ASSET_REGISTRY.values()
+               for kinds in methods.values() for rel in kinds.values()
+               if not os.path.exists(os.path.join(assets_dir, rel))]
+    if missing:
+        print(f"MISSING {len(missing)} artifacts:")
+        for m in missing:
+            print(" ", m)
+        return 1
+    print("asset contract complete")
     return 0
 
 

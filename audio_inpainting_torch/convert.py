@@ -8,10 +8,13 @@ port's extrapolation and paste can run on exactly the JAX fit and noise.
 The spectrogram models' flax trees (``params`` and ``batch_stats`` of
 SimpleUNet, GeneratorUNet, Discriminator, or their packed twins, which
 share the tree, and the ``params`` of the diffusion DiffusionUNet) become
-the port's ``state_dict``s by ``flax_to_state_dict``.
+the port's ``state_dict``s by ``flax_to_state_dict``; the Stable
+Diffusion UNet2DCondition's and AutoencoderKL's by ``sd_flax_to_state_dict``.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -79,4 +82,66 @@ def flax_to_state_dict(params, batch_stats=None) -> dict[str, torch.Tensor]:
 
     walk(params, [])
     walk(batch_stats or {}, [])
+    return out
+
+
+# Stable Diffusion. The JAX package names every flax module of
+# models/sd/ after the diffusers key path, digits joined by underscores, so
+# the key map is a string rule (a copy of the JAX loader's
+# flax_to_torch_key): these module names keep their literal underscore ...
+_SD_PROTECTED = ("linear_1", "linear_2", "group_norm", "time_emb_proj",
+                 "proj_in", "proj_out", "conv_in", "conv_out", "conv_norm_out",
+                 "conv_shortcut", "time_embedding", "transformer_blocks",
+                 "down_blocks", "up_blocks", "mid_block", "quant_conv",
+                 "post_quant_conv", "to_q", "to_k", "to_v", "to_out", "net_",
+                 "attn1", "attn2", "norm1", "norm2", "norm3")
+# ... and these containers follow a non-digit segment
+_SD_LITERAL = {
+    "mid_block_resnets": "mid_block.resnets",
+    "mid_block_attentions": "mid_block.attentions",
+    "net_0": "net.0",
+    "net_2": "net.2",
+    "to_out_0": "to_out.0",
+}
+_SD_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+              "embedding": "weight"}
+
+
+def flax_to_torch_key(path: tuple[str, ...]) -> str:
+    """('down_blocks_0_resnets_0', 'conv1', 'kernel') ->
+    'down_blocks.0.resnets.0.conv1.weight'."""
+    *mods, leaf = path
+    segs = []
+    for m in mods:
+        if m in _SD_LITERAL:
+            m = _SD_LITERAL[m]
+        else:
+            if m not in _SD_PROTECTED:
+                m = re.sub(r"_(?=\d)", ".", m)
+                m = re.sub(r"(?<=\d)_", ".", m)
+            for lit, rep in _SD_LITERAL.items():
+                if lit in m:
+                    m = m.replace(lit, rep)
+        segs.append(m)
+    return ".".join(segs + [_SD_LEAVES[leaf]])
+
+
+def sd_flax_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The JAX package's UNet2DCondition or AutoencoderKL params (a flax
+    tree of arrays) as the port's CPU ``state_dict``: keys by
+    ``flax_to_torch_key``, conv kernels (kh, kw, I, O) as (O, I, kh, kw),
+    dense kernels (I, O) as (O, I), each norm's scale as its weight."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+                continue
+            a = torch.tensor(np.asarray(val, np.float32))
+            if key == "kernel":
+                a = a.permute(3, 2, 0, 1) if a.ndim == 4 else a.T
+            out[flax_to_torch_key(path + (key,))] = a.contiguous()
+
+    walk(params, ())
     return out

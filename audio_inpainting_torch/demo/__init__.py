@@ -1,1 +1,2 @@
-"""The live restore API (live.py): an HTTP server over the facade."""
+"""The demo: the artifact gallery (app.py) and the live restore API
+(live.py), an HTTP server over the facade."""

@@ -330,11 +330,11 @@ def make_handler(assets_dir: str, device):
     return LiveHandler
 
 
-def serve(assets_dir: str, port: int = 7860) -> None:  # pragma: no cover
+def serve(assets_dir: str, port: int = 7860, device=None) -> None:  # pragma: no cover
     """Blocking server hosting the files under ``assets_dir`` + the live
-    API, restoring on the GPU."""
+    API, restoring on ``device`` (cuda by default)."""
     server = http.server.ThreadingHTTPServer(("", port),
-                                             make_handler(assets_dir, "cuda"))
+                                             make_handler(assets_dir, device or "cuda"))
     print(f"demo + live API at http://localhost:{port}/ "
           f"(POST /api/restore, GET /api/methods)")
     server.serve_forever()

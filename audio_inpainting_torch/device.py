@@ -31,6 +31,13 @@ def host_to_device(a: torch.Tensor, device: torch.device) -> torch.Tensor:
     return a.to(device)
 
 
+def seeded_generator(*entropy: int) -> torch.Generator:
+    """A CPU generator seeded from ``entropy`` mixed by numpy's
+    SeedSequence, so distinct streams of one seed do not overlap."""
+    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
 def as_f32(x, device=None) -> torch.Tensor:
     """float32 tensor of ``x``.
 

@@ -16,6 +16,12 @@ contract:
   (``PRIOR_DIR``), then DDIM (eta = 0) with RePaint composites over the
   masked region at full resolution.
 
+With a local riffusion checkpoint (diffusers layout; the weights are not
+in the repository), ``riffusion_restore_audio`` runs the reference's own
+pipeline instead: the SD port in models/sd/ (UNet2DCondition + VAE + CLIP
+text encoder + PLMS), 50 steps, strength 1.0, on a 512x512 canvas that
+``resize_image`` makes as PIL's bicubic resize does, bit for bit.
+
 Random draws come from seeded CPU generators behind ``_draw_init``,
 ``_draw_train`` and ``_draw_sample``, so every device sees the same
 numbers; the tests replace them with the JAX package's draws.
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from ..corrupt import mask_to_bad_columns
-from ..device import host_to_device, resolve_device
+from ..device import host_to_device, resolve_device, seeded_generator
 from ..models.diffusion_unet import DiffusionUNet
 from ..ops.griffin_lim import griffin_lim
 from ..ops.stft import stft, torch_stft_config
@@ -71,6 +77,64 @@ def image_to_linear_spec(img: np.ndarray, smin: float, smax: float) -> np.ndarra
 def mask_from_image(img: np.ndarray, threshold: int = 10) -> np.ndarray:
     """255 where the image is near-black (damaged), else 0 (reference :52-55)."""
     return np.where(np.asarray(img) < threshold, 255, 0).astype(np.uint8)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter (a = -0.5) with support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _resample_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis:
+    the input index of every tap (out_size, ksize), clamped into range,
+    and its fixed-point weight (0 past the output's last tap)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C's (int) cast truncates toward zero
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    tap = np.arange(ksize)
+    w = _bicubic((tap[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = np.where(tap[None, :] < xmax[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    fixed = w * (1 << _PRECISION_BITS)
+    fixed = np.where(w < 0, np.trunc(fixed - 0.5), np.trunc(fixed + 0.5)).astype(np.int64)
+    return np.minimum(xmin[:, None] + tap[None, :], in_size - 1), fixed
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of Pillow's separable resample along ``axis``: a
+    fixed-point sum with rounding bias, clipped to uint8."""
+    idx, fixed = _resample_taps(img.shape[axis], out_size)
+    taps = np.take(img.astype(np.int64), idx, axis=axis)   # axis -> (out, ksize)
+    shape = [1] * taps.ndim
+    shape[axis], shape[axis + 1] = fixed.shape
+    acc = (taps * fixed.reshape(shape)).sum(axis=axis + 1) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_image(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's default (bicubic) resize of a uint8 (H, W) or (H, W, C) image
+    to ``size`` = (width, height), as the reference resizes through PIL,
+    bit for bit: Pillow's ImagingResample for 8-bit images, a horizontal
+    pass then a vertical one, each skipped where its size is unchanged."""
+    img = np.asarray(img, np.uint8)
+    width, height = size
+    if img.shape[1] != width:
+        img = _resample_axis(img, width, 1)
+    if img.shape[0] != height:
+        img = _resample_axis(img, height, 0)
+    return img
 
 
 # ----------------------------------------------------- DDPM machinery ------
@@ -115,15 +179,10 @@ class DiffusionConfig:
     fill_energy_ratio: float | None = 0.12
 
 
-def _generator(*entropy: int) -> torch.Generator:
-    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
-    return torch.Generator().manual_seed(seed)
-
-
 def _draw_init(seed: int, run: str, base: int) -> dict[str, torch.Tensor]:
     """Initial DiffusionUNet weights (CPU state dict) of a per-clip
     (``run="clip"``) or corpus (``"corpus"``) training run."""
-    return DiffusionUNet(base, generator=_generator(seed, _RUNS[run], 0)).state_dict()
+    return DiffusionUNet(base, generator=seeded_generator(seed, _RUNS[run], 0)).state_dict()
 
 
 def _draw_train(seed: int, run: str, step: int, cfg: DiffusionConfig,
@@ -131,7 +190,7 @@ def _draw_train(seed: int, run: str, step: int, cfg: DiffusionConfig,
     """Training step ``step``'s draws, CPU tensors: patch origins ys, xs
     (B,) uniform in [0, H - P) and [0, W - P) (0 where the image is not
     larger than the patch), times t (B,) in [0, T), noise eps (B, 1, P, P)."""
-    gen = _generator(seed, _RUNS[run], 1, step)
+    gen = seeded_generator(seed, _RUNS[run], 1, step)
     (h, w), p, b = shape, cfg.patch, cfg.batch
     return (torch.randint(0, max(h - p, 1), (b,), generator=gen),
             torch.randint(0, max(w - p, 1), (b,), generator=gen),
@@ -142,7 +201,7 @@ def _draw_train(seed: int, run: str, step: int, cfg: DiffusionConfig,
 def _draw_sample(seed: int, shape: tuple[int, ...], n_steps: int):
     """The sampler's draws, CPU tensors of ``shape``: the initial x, then
     the re-noising of the known region at each of the ``n_steps`` steps."""
-    gen = _generator(seed, 2)
+    gen = seeded_generator(seed, 2)
     for _ in range(n_steps + 1):
         yield torch.randn(shape, generator=gen)
 
@@ -323,6 +382,57 @@ def diffusion_restore_audio(damaged: np.ndarray, sr: int,
                       power=1.0, seed=key, device=dev).cpu().numpy()
     if cfg.fill_energy_ratio is not None:
         out = _calibrate_fill_energy(damaged, out, mask, cfg.fill_energy_ratio)
+    if not composite:
+        return out
+    return _composite_time_domain(damaged, out, mask)
+
+
+def riffusion_restore_audio(damaged: np.ndarray, sr: int,
+                            checkpoint_root: str | None = None,
+                            prompt: str | None = None, steps: int = 50,
+                            key: int = 0, composite: bool = True,
+                            fill_energy_ratio: float | None = 0.12,
+                            bundle: dict | None = None, image_size: int = 512,
+                            device=None) -> np.ndarray:
+    """Reference-exact Riffusion inpainting from a LOCAL checkpoint.
+
+    wav -> log-spec image -> RGB image_size^2 -> SD masked-latent inpaint
+    (models/sd/pipeline.py; prompt, steps and strength as in
+    main_diffusion_gap.py:58-67) -> resize back -> Griffin-Lim. Raises
+    FileNotFoundError when neither ``checkpoint_root`` nor ``bundle`` is
+    given or the checkpoint is absent.
+
+    bundle: a ``load_riffusion`` dict, loaded once and reused per clip; it
+    runs where its modules are. image_size: the SD canvas (512 is the
+    reference's resize, main_diffusion_gap.py:58-59; tests shrink it). The
+    codec, the checkpoint load and Griffin-Lim run on ``device`` (cuda by
+    default). Returns float32 numpy.
+    """
+    from ..models.sd import PROMPT, InpaintConfig, load_riffusion, riffusion_inpaint_image
+
+    dev = resolve_device(device)
+    if bundle is None:
+        if checkpoint_root is None:
+            raise FileNotFoundError(
+                "riffusion_restore_audio needs checkpoint_root or bundle")
+        bundle = load_riffusion(checkpoint_root, device=dev)
+    damaged = np.asarray(damaged, np.float32)
+    logspec = wav_to_logspec(torch.tensor(damaged, device=dev)).cpu().numpy()
+    img, smin, smax = logspec_to_image(logspec)
+    mask = mask_from_image(img)
+    h, w = img.shape
+    rgb = resize_image(np.repeat(img[:, :, None], 3, axis=2), (image_size, image_size))
+    out = riffusion_inpaint_image(bundle, rgb, resize_image(mask, (image_size, image_size)),
+                                  prompt or PROMPT, InpaintConfig(steps=steps), key=key)
+    gray = np.asarray(resize_image(out, (w, h)), np.float32).mean(axis=2)
+    inpainted = np.rint(np.clip(gray, 0, 255)).astype(np.uint8)
+    # the known region is trustworthy in the source image; keep it exact
+    inpainted = np.where(mask == 255, inpainted, img)
+    linear = image_to_linear_spec(inpainted, smin, smax)
+    out = griffin_lim(linear, n_fft=2048, hop=512, n_iter=32, length=len(damaged),
+                      power=1.0, seed=key, device=dev).cpu().numpy()
+    if fill_energy_ratio is not None:
+        out = _calibrate_fill_energy(damaged, out, mask, fill_energy_ratio)
     if not composite:
         return out
     return _composite_time_domain(damaged, out, mask)

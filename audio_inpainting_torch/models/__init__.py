@@ -1,3 +1,7 @@
+"""The port's models: the spectrogram U-Net, GAN and diffusion U-Net here;
+Stable Diffusion v1 / Riffusion in models/sd/ (imported as
+``audio_inpainting_torch.models.sd``)."""
+
 from .diffusion_unet import DiffusionUNet, ResBlock, timestep_embedding
 from .unet import (BN_MOMENTUM, BatchNorm, Discriminator, GeneratorUNet,
                    SimpleUNet, init_flax_style, pad_to_multiple,

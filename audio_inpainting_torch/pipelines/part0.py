@@ -4,8 +4,8 @@ The port of audio_inpainting_tpu/pipelines/part0.py: a 20% gap at 40% of
 the segment, restored by a Gaussian process (main1_gp.py, on the segment
 and on the synthetic 200 + 450 Hz signal), bidirectional AR without
 texture (main2_AR.py) and with texture injection (main3_AR_text.py), and
-iterative NMF (main4_NMF.py). The waveform figures (io/viz.py) wait for a
-later slice (ROADMAP.md, Queue 1).
+iterative NMF (main4_NMF.py); each leg also draws its waveform figure
+(io/viz.py) where matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import torch
 from ..corrupt import contiguous_gap_mask
 from ..device import resolve_device
 from ..io import load_mono_normalized
-from ..methods import ARConfig, ar_restore_gap
+from ..io.viz import (ar_texture_waveform_viz, ar_waveform_viz, gp_waveform_viz,
+                      nmf_waveform_viz)
+from ..methods import ARConfig, ar_restore_gap, ar_restore_gap_detailed
 from ..methods.gp import GPConfig, gp_restore
 from ..methods.nmf import NMFConfig, nmf_inpaint_iterative
 from ..metrics import local_snr_db, snr_db
@@ -70,34 +72,43 @@ def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
     corrupted = signal.copy()
     corrupted[gs:ge] = 0.0
     results: dict = {"gap": (gs, ge), "sr": sr}
+    t_axis = np.arange(n, dtype=np.float32) / sr
 
     # --- GP (main1_gp.py) ---
     t0 = time.time()
-    gp_out, _ = gp_restore(signal, mask, sr, gp_cfg or GPConfig(), seed,
-                           device=dev)
+    gp_out, sigma = gp_restore(signal, mask, sr, gp_cfg or GPConfig(), seed,
+                               device=dev)
     _metrics("gp", signal, gp_out, gs, ge, t0, results, dev)
     write_artifacts(corrupted, sr, assets_dir, "part0", "gp_corrupted")
     write_artifacts(gp_out, sr, assets_dir, "part0", "gp")
     write_artifacts(signal, sr, assets_dir, "part0", "gp_original")
+    gp_waveform_viz(t_axis, signal, gp_out, sigma, (gs, ge),
+                    os.path.join(assets_dir, "part0", "gp_waveform_viz.png"))
 
     # --- synthetic GP demo: the main1_gp.py fallback on its 200 + 450 Hz
     # synthetic signal, shipped beside the real-clip assets ---
     t0 = time.time()
     syn_sr, syn_sig = synthetic_signal(duration, seed=seed)
     syn_mask, (ss, se) = contiguous_gap_mask(len(syn_sig), gap_ratio)
-    syn_out, _ = gp_restore(syn_sig, syn_mask, syn_sr, gp_cfg or GPConfig(),
-                            seed, device=dev)
+    syn_out, syn_sigma = gp_restore(syn_sig, syn_mask, syn_sr, gp_cfg or GPConfig(),
+                                    seed, device=dev)
+    gp_waveform_viz(np.arange(len(syn_sig), dtype=np.float32) / syn_sr,
+                    syn_sig, syn_out, syn_sigma, (ss, se),
+                    os.path.join(assets_dir, "part0", "synthetic_gp_restoration.png"))
     _metrics("gp_synthetic", syn_sig, syn_out, ss, se, t0, results, dev)
 
     # --- Bidirectional AR, order 30, no texture (main2_AR.py) ---
     t0 = time.time()
     cfg = ARConfig(order=30, alpha=0.1, texture=False, context_len=max(gs, n - ge))
-    ar_out = ar_restore_gap(corrupted, (gs, ge), cfg, seed,
-                            device=dev).cpu().numpy()
+    ar_t, fwd, bwd = ar_restore_gap_detailed(corrupted, (gs, ge), cfg, seed,
+                                             device=dev)
+    ar_out = ar_t.cpu().numpy()
     _metrics("ar", signal, ar_out, gs, ge, t0, results, dev)
     write_artifacts(corrupted, sr, assets_dir, "part0", "ar_corrupted")
     write_artifacts(ar_out, sr, assets_dir, "part0", "ar")
     write_artifacts(signal, sr, assets_dir, "part0", "ar_original")
+    ar_waveform_viz(t_axis, signal, ar_out, fwd, bwd, (gs, ge),
+                    os.path.join(assets_dir, "part0", "ar_waveform_viz.png"), order=30)
 
     # --- AR + texture injection (main3_AR_text.py) ---
     # The reference's noise injection is unseeded (main3_AR_text.py:74), so
@@ -119,6 +130,8 @@ def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
     write_artifacts(corrupted, sr, assets_dir, "part0", "ar_texture_corrupted")
     write_artifacts(art_out, sr, assets_dir, "part0", "ar_texture")
     write_artifacts(signal, sr, assets_dir, "part0", "ar_texture_original")
+    ar_texture_waveform_viz(t_axis, signal, art_out, (gs, ge),
+                            os.path.join(assets_dir, "part0", "ar_texture_waveform_viz.png"))
 
     # --- Iterative NMF (main4_NMF.py): 512/384 STFT, faded gap, 50 refits ---
     t0 = time.time()
@@ -149,4 +162,7 @@ def run_part0(input_file: str | None, assets_dir: str = "demo_assets",
     write_artifacts(nmf_corr, sr, assets_dir, "part0", "nmf_corrupted")
     write_artifacts(final, sr, assets_dir, "part0", "nmf")
     write_artifacts(signal, sr, assets_dir, "part0", "nmf_original")
+    restored_mag = stft(torch.tensor(final, device=dev), scfg).abs().cpu().numpy()
+    nmf_waveform_viz(signal, final, (gs, ge), sr, restored_mag,
+                     os.path.join(assets_dir, "part0", "nmf_waveform_viz.png"))
     return results

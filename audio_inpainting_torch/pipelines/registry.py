@@ -47,6 +47,55 @@ ASSET_REGISTRY: dict[str, dict[str, dict[str, str]]] = {
 }
 
 
+# Diagnostic figures (the reference's per-method visualize() outputs), also
+# written by the pipelines where matplotlib is installed; checked beside
+# the audio/spectrogram pairs. main3_AR_text.py:138 /
+# main5_UNet_mask.py:220-222 counterparts.
+VIZ_ARTIFACTS: list[str] = [
+    "part0/gp_waveform_viz.png",
+    # the reference ships this under demo_assets/part0: the main1_gp.py
+    # synthetic-fallback run (200+450 Hz sines, main1_gp.py:53-59)
+    # visualized; run_part0 emits it beside the real-clip GP assets
+    "part0/synthetic_gp_restoration.png",
+    "part0/ar_waveform_viz.png",
+    "part0/ar_texture_waveform_viz.png",
+    "part0/nmf_waveform_viz.png",
+    "part1/spectrogram_comparison.png",
+    "part1/spectrogram_comparison.pdf",
+]
+
+# Radio labels used by the demo UI, matching the reference (demo.py:6-63)
+DEMO_LABELS = {
+    # part0 is a framework addition: the reference demo shows only
+    # part1/part2, but the part-0 pipelines publish full artifacts too.
+    "part0": [
+        ("gp_corrupted", "🤕 Damaged (Missing Segments)"),
+        ("gp", "🌊 Gaussian Process (GP)"),
+        ("ar", "📈 Autoregressive (AR)"),
+        ("ar_texture", "🎛️ AR + Texture Noise"),
+        ("nmf", "🧩 Spectral Factorization (NMF)"),
+        ("gp_original", "✅ Ground Truth"),
+    ],
+    "part1": [
+        ("damaged", "🤕 Damaged (Random Mask)"),
+        ("linear", "📏 Linear Interpolation"),
+        ("ar", "📈 Autoregressive (AR)"),
+        ("nmf", "🧩 Spectral Factorization (NMF)"),
+        ("unet", "🧠 Deep Learning (U-Net)"),
+        ("original", "✅ Ground Truth"),
+    ],
+    "part2": [
+        ("damaged", "🕳️ Damaged (2s Gap)"),
+        ("linear", "📏 Linear Interpolation"),
+        ("ar", "📈 Autoregressive (AR)"),
+        ("nmf", "🧩 Spectral Factorization (NMF)"),
+        ("gan", "🎨 Generative Adversarial Network (GAN)"),
+        ("diffusion", "☢️ Diffusion Model (Riffusion)"),
+        ("original", "✅ Ground Truth"),
+    ],
+}
+
+
 def asset_path(assets_dir: str, part: str, method: str, kind: str = "audio") -> str:
     return os.path.join(assets_dir, ASSET_REGISTRY[part][method][kind])
 

@@ -19,7 +19,12 @@ streaming engine (linear, ar and the persistent U-Net fed 4,096-sample
 chunks) and the corpus path (phase ``serve``: ``run_serve`` over four
 10 s clips with ar, the U-Net and the GAN, the batched per-clip trainers
 against single clips and timed against the group size, the U-Net's
-window batch, and the live HTTP API). Each phase prints one JSON line;
+window batch, and the live HTTP API) and Stable Diffusion v1 / Riffusion
+at full width (phase ``riffusion``: seeded random weights written as
+safetensors and loaded by ``load_riffusion``, held to the SD-v1 key
+manifest, ``riffusion_restore_audio`` on Part 2's clip at 512^2 with 50
+PLMS steps and CFG 7.5, the UNet, VAE and loop timed beside their FLOP
+bounds, GPU against CPU). Each phase prints one JSON line;
 any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +45,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from pathlib import Path
 
@@ -128,6 +134,15 @@ GAN_GROUP_SIZES = (1, 2, 4)
 WINDOW_BATCH_SECONDS = 20.0
 WINDOW_BATCH_EPOCHS = 100
 WINDOW_BATCH_AGREEMENT_DB = 60.0
+# phase riffusion: SD v1 at full width on random weights made from a seed
+SD_SEED = 0
+SD_STEPS = 50                  # the reference's num_inference_steps
+SD_CANVAS = 512                # the reference's resize
+SD_CTX_LEN = 77                # CLIP's context length
+SD_FORWARD_RTOL = 1e-4         # GPU vs CPU, of the output's peak
+SD_LATENT_RTOL = 1e-4          # the tiny inpaint's latents, of their peak
+SD_VS_CPU_CANVAS = 256         # the VAE's GPU-vs-CPU size
+SD_PROFILE_STEPS = 10          # the profiled loop: 11 evaluations
 
 
 def emit(obj) -> None:
@@ -165,11 +180,23 @@ def cuda_ms(fn, calls: int, rounds: int = 5, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def union_ms(intervals) -> float:
+    """The length of the union of (start, end) intervals in µs, in ms."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
 def device_profile(fn, top: int = 8, kernel: str = "ar_scan") -> dict:
-    """torch.profiler over one call of ``fn``: device busy time, the wall
-    time, the number of device calls (kernels, copies), the ``top`` device
-    entries by self time, and the device time of the entries whose name
-    holds ``kernel``."""
+    """torch.profiler over one call of ``fn``: device busy time (the union
+    of the device entries' intervals: cuDNN runs some kernels side by side
+    on its own streams, so their sum, ``device_sum_ms``, may pass the
+    wall), the wall time, the number of device calls (kernels, copies),
+    the ``top`` device entries by self time, and the device time of the
+    entries whose name holds ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -184,9 +211,11 @@ def device_profile(fn, top: int = 8, kernel: str = "ar_scan") -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    sum_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy_ms = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
     kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_sum_ms": sum_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "device_calls": sum(e.count for e in events),
             "kernel_device_ms": kernel_ms,
@@ -536,6 +565,306 @@ def phase_diffusion(dev):
                                          "load_s": load_s},
           "gpu_vs_cpu": vs_cpu, "griffin_lim": gl,
           "full_size": {"forward": forward, "ddim": ddim, "train_step": train}})
+
+
+def seeded_sd_state(model, gen: torch.Generator) -> dict[str, torch.Tensor]:
+    """Random float32 CPU weights for every entry of ``model``'s state dict
+    (a meta-device model gives the keys and shapes): matrices and kernels
+    normal at 1/sqrt(fan-in), norm weights near 1, biases small."""
+    out = {}
+    for key, ref in model.state_dict().items():
+        a = torch.randn(ref.shape, generator=gen)
+        if ref.ndim >= 2:
+            a /= float(np.sqrt(ref[0].numel()))
+        elif key.endswith("weight"):
+            a = 1.0 + 0.05 * a
+        else:
+            a *= 0.02
+        out[key] = a
+    return out
+
+
+def write_safetensors(path: Path, state: dict[str, torch.Tensor]) -> None:
+    """``state`` (float32 CPU tensors) as a ``.safetensors`` file: an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, then
+    the raw buffers in header order."""
+    header, offset = {}, 0
+    for key, t in state.items():
+        n = t.numel() * 4
+        header[key] = {"dtype": "F32", "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in state.values():
+            f.write(t.contiguous().numpy().tobytes())
+
+
+class SmokeTokenizer:
+    """Stands in for CLIP's tokenizer: SD_CTX_LEN ids per text."""
+
+    model_max_length = SD_CTX_LEN
+
+    def __call__(self, texts, **kw):
+        return types.SimpleNamespace(input_ids=torch.zeros((len(texts), SD_CTX_LEN),
+                                                           dtype=torch.long))
+
+
+class SmokeTextEncoder:
+    """Stands in for CLIP's text encoder, as tests/test_sd.py's does: a
+    seeded normal context of the ids' shape (2, 77, dim)."""
+
+    def __init__(self, dim: int):
+        self.dim = dim
+
+    def __call__(self, ids):
+        ctx = np.random.default_rng(3).normal(size=(ids.shape[0], ids.shape[1], self.dim))
+        return types.SimpleNamespace(last_hidden_state=torch.tensor(ctx, dtype=torch.float32))
+
+
+def sd_macs(model, call) -> int:
+    """Multiply-accumulates of ``call()`` through ``model``: its
+    convolutions, dense layers and attention products (q k^T and p v),
+    from the shapes they see (forward hooks). Norms, activations, the
+    softmax and the adds are not counted."""
+    from torch import nn
+
+    from audio_inpainting_torch.models.sd.unet2d import Attention
+    from audio_inpainting_torch.models.sd.vae import VAEAttention
+
+    total = 0
+
+    def hook(mod, args, out):
+        nonlocal total
+        if isinstance(mod, nn.Conv2d):
+            total += out.numel() * mod.weight[0].numel()
+        elif isinstance(mod, nn.Linear):
+            total += out.numel() * mod.in_features
+        elif isinstance(mod, Attention):
+            ctx = args[1] if len(args) > 1 else args[0]
+            total += 2 * args[0].shape[0] * args[0].shape[1] * ctx.shape[1] * mod.to_q.out_features
+        else:                                   # VAEAttention: one head over H x W
+            b, c, h, w = args[0].shape
+            total += 2 * b * (h * w) ** 2 * c
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear, Attention, VAEAttention))]
+    with torch.no_grad():
+        call()
+    for h in handles:
+        h.remove()
+    return total
+
+
+def timed_bound(fn, model, call_bytes: float, calls: int = 3) -> dict:
+    """``fn``'s device ms (CUDA events) beside its FLOP bound: 2 x its MACs
+    over the fp32 peak, or the weights and ``call_bytes`` over HBM."""
+    macs = sd_macs(model, fn)
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        ms = cuda_ms(fn, calls=calls, rounds=3)
+    out = {"ms": ms, "gmac": macs / 1e9,
+           **flop_bound(2.0 * macs, 4.0 * n_params + call_bytes)}
+    out["tflops"] = out["gflop"] / ms
+    return out
+
+
+def phase_riffusion(dev, tmp: Path):
+    """Stable Diffusion v1 / Riffusion at full width: seeded random weights
+    written in the diffusers layout and loaded by ``load_riffusion``; their
+    keys and shapes against the frozen SD-v1 manifest; then
+    ``riffusion_restore_audio`` on Part 2's clip (512^2 canvas, 50 PLMS
+    steps, CFG 7.5, float32), cold and warm, held to the composite
+    contract; the UNet's CFG forward, the VAE and the 51-evaluation loop
+    timed beside their FLOP bounds and profiled; GPU against CPU: one
+    full-width UNet forward, the VAE at 256^2, and the tiny inpaint with
+    the same draws."""
+    from audio_inpainting_torch.corrupt import center_gap_bounds, synth_music_clip
+    from audio_inpainting_torch.methods.diffusion import riffusion_restore_audio
+    from audio_inpainting_torch.models import sd
+    from audio_inpainting_torch.models.sd import pipeline
+    from audio_inpainting_torch.ops import ar_scan
+
+    # weights: written as safetensors, loaded through the entry point
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SD_SEED)
+    root = tmp / "riffusion"
+    n_params = {}
+    for sub, cls, cfg in (("unet", sd.UNet2DCondition, sd.UNetConfig()),
+                          ("vae", sd.AutoencoderKL, sd.VAEConfig())):
+        with torch.device("meta"):
+            model = cls(cfg)
+        state = seeded_sd_state(model, gen)
+        n_params[sub] = sum(t.numel() for t in state.values())
+        write_safetensors(root / sub / "diffusion_pytorch_model.safetensors", state)
+        del state
+    make_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = sd.load_riffusion(str(root), load_text=False, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    unet, vae = bundle["unet_params"], bundle["vae_params"]
+    with open(Path(__file__).resolve().parent / "tests" / "golden" / "sd_v1_manifest.json") as f:
+        manifest = json.load(f)
+    for name, model in (("unet", unet), ("vae", vae)):
+        got = {k: list(v.shape) for k, v in model.state_dict().items()}
+        if got != manifest[name]:
+            raise AssertionError(f"{name}: state_dict keys/shapes differ from the manifest")
+    ctx_dim = bundle["unet_cfg"].cross_attention_dim
+    bundle.update(tokenizer=SmokeTokenizer(), text_encoder=SmokeTextEncoder(ctx_dim))
+
+    # the full path on Part 2's clip, cold then warm
+    damaged = synth_music_clip(1, SR, 10.0)
+    gs, ge = center_gap_bounds(len(damaged), SR)
+    damaged[gs:ge] = 0.0
+
+    def restore():
+        out = riffusion_restore_audio(damaged, SR, steps=SD_STEPS, bundle=bundle,
+                                      image_size=SD_CANVAS, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    restore()
+    cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ar_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = restore()
+    warm_s = time.perf_counter() - t0
+    launches = ar_scan.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if out.shape != damaged.shape or out.dtype != np.float32 or not np.isfinite(out).all():
+        raise AssertionError("riffusion: output has the wrong shape or type, or is not finite")
+    keep = np.ones(len(out), bool)
+    keep[gs - 2048:ge + 2048] = False
+    outside_err = float(np.abs(out[keep] - damaged[keep]).max())
+    hole_peak = float(np.abs(out[gs + 2048:ge - 2048]).max())
+    if outside_err > 1e-6 or not hole_peak > 1e-4:
+        raise AssertionError(f"riffusion composite: outside error {outside_err}, "
+                             f"hole peak {hole_peak}")
+
+    # the layers at full width, each beside its bound
+    lat = SD_CANVAS // 2 ** (len(bundle["vae_cfg"].block_out_channels) - 1)
+    g = torch.Generator().manual_seed(SD_SEED + 1)
+    x2 = torch.randn((2, 4, lat, lat), generator=g).to(dev)
+    t2 = torch.full((2,), 501.0, device=dev)
+    ctx = SmokeTextEncoder(ctx_dim)(torch.zeros(2, SD_CTX_LEN)).last_hidden_state.to(dev)
+    img = (torch.rand((1, 3, SD_CANVAS, SD_CANVAS), generator=g) * 2 - 1).to(dev)
+    z = torch.randn((1, 4, lat, lat), generator=g).to(dev)
+    layers = {
+        "unet_cfg_forward": timed_bound(lambda: unet(x2, t2, ctx), unet,
+                                        4.0 * (2 * x2.numel() + ctx.numel())),
+        "vae_encode": timed_bound(lambda: vae.encode(img), vae,
+                                  4.0 * (img.numel() + 2 * z.numel())),
+        "vae_decode": timed_bound(lambda: vae.decode(z), vae, 4.0 * (z.numel() + img.numel())),
+    }
+    layers["unet_cfg_forward"]["shape"] = [list(x2.shape), list(ctx.shape)]
+    with torch.no_grad():
+        layers["vae_decode"]["profile"] = device_profile(lambda: vae.decode(z), top=6,
+                                                         kernel="RowwiseMoments")
+
+    # the 51-evaluation loop, as the restore runs it, then profiled at 11
+    cfg = sd.InpaintConfig(steps=SD_STEPS, unet=bundle["unet_cfg"], vae=bundle["vae_cfg"])
+    init = torch.randn((1, 4, lat, lat), generator=g).to(dev)
+    hole = torch.zeros((1, 1, lat, lat), device=dev)
+    hole[..., lat // 3:2 * lat // 3] = 1.0
+    pipeline._denoise_loop(unet, init, hole, ctx, 0, sd.InpaintConfig(
+        steps=2, unet=cfg.unet, vae=cfg.vae))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline._denoise_loop(unet, init, hole, ctx, 0, cfg)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    prof = device_profile(lambda: pipeline._denoise_loop(unet, init, hole, ctx, 0, sd.InpaintConfig(
+        steps=SD_PROFILE_STEPS, unet=cfg.unet, vae=cfg.vae)), top=10, kernel="RowwiseMoments")
+    n_evals = SD_STEPS + 1
+    loop = {"evaluations": n_evals, "wall_s": loop_s, "ms_per_evaluation": loop_s * 1e3 / n_evals,
+            "profiled_evaluations": SD_PROFILE_STEPS + 1, "profile": prof,
+            "bound_ms": layers["unet_cfg_forward"]["bound_ms"] * n_evals}
+
+    vs_cpu = sd_vs_cpu(unet, vae, ctx, lat, g, dev)
+    del bundle, unet, vae
+    torch.cuda.empty_cache()
+    emit({"phase": "riffusion", "gpu": gpu_name_and_power(),
+          "weights": {"parameters": n_params, "make_and_write_s": make_s, "load_s": load_s,
+                      "manifest": "equal"},
+          "restore": {"samples": len(out), "gap": [gs, ge], "steps": SD_STEPS,
+                      "canvas": SD_CANVAS, "guidance_scale": cfg.guidance_scale,
+                      "cold_s": cold_s, "warm_s": warm_s, "peak_memory_gb": peak_gb,
+                      "outside_max_abs_err": outside_err, "hole_peak": hole_peak,
+                      "kernel_launches": launches},
+          "layers": layers, "loop": loop, "gpu_vs_cpu": vs_cpu})
+    return launches
+
+
+def sd_vs_cpu(unet, vae, ctx, lat: int, g: torch.Generator, dev) -> dict:
+    """GPU against CPU with the same weights and inputs: one full-width UNet
+    forward (batch 1), the VAE's encode and decode at SD_VS_CPU_CANVAS^2,
+    and riffusion_inpaint_image at tiny() width, 4 steps, the same draws."""
+    from audio_inpainting_torch.models import sd
+    from audio_inpainting_torch.models.sd import pipeline
+
+    def cpu_copy(model):
+        return sd.load_module(type(model), model.cfg,
+                              {k: v.cpu() for k, v in model.state_dict().items()}, "cpu")
+
+    x = torch.randn((1, 4, lat, lat), generator=g)
+    t = torch.tensor([501.0])
+    img = torch.rand((1, 3, SD_VS_CPU_CANVAS, SD_VS_CPU_CANVAS), generator=g) * 2 - 1
+    with torch.no_grad():
+        unet_err = rel_err(unet(x.to(dev), t.to(dev), ctx[1:]),
+                           cpu_copy(unet)(x, t, ctx[1:].cpu()))
+        vae_cpu = cpu_copy(vae)
+        g_mean, g_logvar = vae.encode(img.to(dev))
+        c_mean, c_logvar = vae_cpu.encode(img)
+        enc_err = max(rel_err(g_mean, c_mean), rel_err(g_logvar, c_logvar))
+        dec_err = rel_err(vae.decode(c_mean.to(dev)), vae_cpu.decode(c_mean))
+
+    # the tiny inpaint: weights from a seed, the same on both devices
+    ucfg, vcfg = sd.UNetConfig.tiny(), sd.VAEConfig.tiny()
+    tiny_gen = torch.Generator().manual_seed(SD_SEED + 2)
+    states = {}
+    for name, cls, cfg in (("unet", sd.UNet2DCondition, ucfg), ("vae", sd.AutoencoderKL, vcfg)):
+        with torch.device("meta"):
+            model = cls(cfg)
+        states[name] = seeded_sd_state(model, tiny_gen)
+    rng = np.random.default_rng(4)
+    image = rng.integers(0, 256, size=(32, 32, 3)).astype(np.uint8)
+    mask = np.zeros((32, 32), np.uint8)
+    mask[:, 12:20] = 255
+    runs = []
+    loop = pipeline._denoise_loop
+    for d in (dev, torch.device("cpu")):
+        b = {"unet_params": sd.load_module(sd.UNet2DCondition, ucfg, states["unet"], d),
+             "vae_params": sd.load_module(sd.AutoencoderKL, vcfg, states["vae"], d),
+             "unet_cfg": ucfg, "vae_cfg": vcfg, "tokenizer": SmokeTokenizer(),
+             "text_encoder": SmokeTextEncoder(ucfg.cross_attention_dim)}
+        seen = []
+        pipeline._denoise_loop = lambda *a, **k: seen.append(loop(*a, **k)) or seen[-1]
+        try:
+            u8 = sd.riffusion_inpaint_image(b, image, mask, cfg=sd.InpaintConfig(steps=4), key=0)
+        finally:
+            pipeline._denoise_loop = loop
+        runs.append((seen[0].cpu(), u8))
+    (g_lat, g_u8), (c_lat, c_u8) = runs
+    latent_err = rel_err(g_lat, c_lat)
+    u8_levels = int(np.abs(g_u8.astype(int) - c_u8).max())
+    res = {"tolerance": f"UNet and VAE within {SD_FORWARD_RTOL:g} of the output's peak; "
+                        f"tiny inpaint latents within {SD_LATENT_RTOL:g} of their peak, "
+                        "image within 1 uint8 level",
+           "unet_forward_err_of_peak": unet_err, "vae_encode_err_of_peak": enc_err,
+           "vae_decode_err_of_peak": dec_err, "tiny_inpaint_latent_err_of_peak": latent_err,
+           "tiny_inpaint_uint8_levels": u8_levels}
+    if (max(unet_err, enc_err, dec_err) > SD_FORWARD_RTOL or latent_err > SD_LATENT_RTOL
+            or u8_levels > 1):
+        raise AssertionError(f"riffusion GPU vs CPU: {res}")
+    return res
 
 
 def phase_facade(dev, tmp: Path):
@@ -1842,6 +2171,7 @@ def main() -> int:
         by_path.update(stream_launches)
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
+        by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
               + serve_rows)
     facade = fitted[0]
