@@ -20,7 +20,8 @@ that many seconds around the damage) and writes an int16 WAV. ``stream``
 restores raw little-endian float32 mono PCM from stdin to stdout with the
 streaming engine. ``serve`` restores every WAV of a directory (unet and
 gan train all clips as one grouped net; ``--originals`` names the clean
-WAVs the gan trains against) and ``score`` gives the SNR and LSD of
+WAVs the gan trains against; ``--devices N`` serves on N GPUs, one rank
+each) and ``score`` gives the SNR and LSD of
 restored WAVs against the originals of the same names.
 ``part0``/``part1``/``part2``/``all`` run
 the scenario pipelines, write the demo_assets set and print each leg's
@@ -158,7 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--originals", default=None,
                     help="dir of clean WAVs, same names (GAN method only)")
     ps.add_argument("--devices", type=int, default=1,
-                    help="GPUs to serve on (>= 1; one GPU is used)")
+                    help="GPUs to serve on (>= 1): one rank per card, "
+                         "cuda:0 .. cuda:N-1 over NCCL, clamped to the cards "
+                         "present (with --device cpu: gloo ranks, clamped to "
+                         "the clips); each rank serves and writes its share "
+                         "of the clips")
     ps.add_argument("--seed", type=int, default=0)
     ps.add_argument("--window-s", type=float, default=None,
                     help="long-file mode: per clip, restore only fixed "

@@ -333,9 +333,10 @@ def _draw_restarts(seed: int, n: int, device) -> torch.Tensor:
     return torch.rand((n, 5), generator=gen).to(device)
 
 
-def _fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int) -> torch.Tensor:
-    """Maximize the marginal likelihood from the initial values and
-    ``n_restarts`` random starts at once; return the best log-theta (5,)."""
+def _restarts(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int):
+    """(u0, loss, to_theta): the restarts' unconstrained starting points
+    (n_restarts + 1, 5), the initial values first, the negative marginal
+    likelihood of a batch of them, and their map to log-theta."""
     lo, hi = _bounds(cfg, x.device)
     rand = _draw_restarts(seed, cfg.n_restarts, x.device)
     u0 = torch.cat([_from_theta(_theta0(cfg, x.device), lo, hi)[None],
@@ -344,10 +345,21 @@ def _fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int) -> torch.Te
     def loss(u):
         return _neg_mll(_to_theta(u, lo, hi), x, y, cfg.jitter)
 
+    return u0, loss, lambda u: _to_theta(u, lo, hi)
+
+
+def _fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int) -> torch.Tensor:
+    """Maximize the marginal likelihood from the initial values and
+    ``n_restarts`` random starts at once; return the best log-theta (5,)."""
+    u0, loss, to_theta = _restarts(x, y, cfg, seed)
     u = lbfgs_minimize(loss, u0, cfg.opt_steps, cfg.max_linesearch_steps)
-    losses = loss(u)
-    losses = torch.where(torch.isfinite(losses), losses, torch.inf)
-    return _to_theta(u[torch.argmin(losses)], lo, hi)
+    return to_theta(u[torch.argmin(finite_or_inf(loss(u)))])
+
+
+def finite_or_inf(losses: torch.Tensor) -> torch.Tensor:
+    """Final losses with NaN and -inf as +inf: a restart that left the
+    domain never wins."""
+    return torch.where(torch.isfinite(losses), losses, torch.inf)
 
 
 def _predict(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -390,6 +402,14 @@ def gp_fit_predict(x_train, y_train, x_test, cfg: GPConfig = GPConfig(),
     normalize_y=True semantics: y is standardized for fitting and the
     posterior un-standardized (sklearn GaussianProcessRegressor).
     """
+    return fit_predict_with(lambda x, y: _fit(x, y, cfg, seed), x_train, y_train,
+                            x_test, cfg, device)
+
+
+def fit_predict_with(fit, x_train, y_train, x_test, cfg: GPConfig, device=None):
+    """``gp_fit_predict`` with ``fit(x, y)`` -> log-theta (5,) as the
+    hyperparameter fit on the standardized, subsampled training data
+    (parallel/engines.py splits the restarts over ranks)."""
     x_train = as_f32(x_train, device)
     y_train = as_f32(y_train, x_train.device)
     x_test = as_f32(x_test, x_train.device)
@@ -398,7 +418,7 @@ def gp_fit_predict(x_train, y_train, x_test, cfg: GPConfig = GPConfig(),
     y_n = (y_train - y_mean) / y_std
     k = max(1, int(cfg.fit_subsample))
     with torch.no_grad():
-        theta = _fit(x_train[::k], y_n[::k], cfg, seed)
+        theta = fit(x_train[::k], y_n[::k])
         mu, std = _predict(theta, x_train, y_n, x_test, cfg)
     return mu * y_std + y_mean, std * y_std, theta
 

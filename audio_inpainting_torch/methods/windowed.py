@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..device import resolve_device
 
 
 def _merge_close(gaps: list[tuple[int, int]], min_sep: int) -> list[tuple[int, int]]:
@@ -104,7 +103,7 @@ def restore_windowed(damaged, sr: int, method: str = "ar", *,
                      margin: int = 50, threshold: float = 1e-4,
                      gaps=None, seed: int = 0, original=None,
                      batch_windows: bool = False,
-                     max_window: int | None = None, device=None,
+                     max_window: int | None = None, device=None, ranks=None,
                      **cfg_kwargs) -> np.ndarray:
     """Restore a long mono signal by windowing `api.restore` over the damage.
 
@@ -132,11 +131,20 @@ def restore_windowed(damaged, sr: int, method: str = "ar", *,
     ``restore_clips_unet``). Every window keeps the sequential path's
     seed and preprocessing, so batched == per-window up to the batch's
     summation order (the tests pin the bounds).
+
+    ranks (parallel/mesh.py; default one rank on ``device``): the
+    windows shared over the ranks, each restoring its slice on its own
+    device: the U-Net's window batch of a size as one batch split over
+    the ranks (``restore_clips_unet``), the AR classes by
+    ``ar_restore_windows_dp``, other windows one by one. Every rank
+    returns the whole restored signal.
     """
     from .. import api
     from ..corrupt import find_gaps
+    from ..parallel.mesh import gather_objects, ranks_on, shard_range
 
-    dev = resolve_device(device)
+    ranks = ranks_on(ranks, device)
+    dev = ranks.device
     damaged = np.asarray(damaged, np.float32)
     n = len(damaged)
     window = max(int(round(window_s * sr)), 256)
@@ -186,16 +194,20 @@ def restore_windowed(damaged, sr: int, method: str = "ar", *,
 
     if batch_windows and method == "unet" and len(prepped) > 1:
         restored_all = _restore_windows_unet_batched(prepped, seed=seed,
-                                                     device=dev, **cfg_kwargs)
+                                                     ranks=ranks, **cfg_kwargs)
     elif batch_windows and method == "ar" and len(prepped) > 1:
-        restored_all = _restore_windows_ar_batched(prepped, seed=seed,
-                                                   device=dev, **cfg_kwargs)
+        restored_all = _restore_windows_ar_batched(prepped, seed=seed, ranks=ranks,
+                                                   **cfg_kwargs)
     else:
-        restored_all = [np.asarray(api.restore(
-            sub, sr, method=method, gaps=local, mask=mask,
-            threshold=threshold, seed=seed, original=sub_orig, device=dev,
-            **cfg_kwargs), np.float32)
-            for (_, _, _, _, sub, sub_orig, local, mask) in prepped]
+        def one(i):
+            _, _, _, _, sub, sub_orig, local, mask = prepped[i]
+            return np.asarray(api.restore(
+                sub, sr, method=method, gaps=local, mask=mask,
+                threshold=threshold, seed=seed, original=sub_orig, device=dev,
+                **cfg_kwargs), np.float32)
+
+        mine = range(len(prepped))[shard_range(len(prepped), ranks, exact=False)]
+        restored_all = sum(gather_objects([one(i) for i in mine], ranks), [])
 
     for (w0, size, group, hi, *_), restored in zip(prepped, restored_all):
         w = composite_weight(size, [(s - w0, e - w0) for s, e in group],
@@ -227,18 +239,20 @@ def composite_weight(size: int, rel_gaps: list[tuple[int, int]],
     return w
 
 
-def _restore_windows_ar_batched(prepped, *, seed: int, device, **cfg_kwargs):
+def _restore_windows_ar_batched(prepped, *, seed: int, ranks, **cfg_kwargs):
     """Batch AR over same-shape-bucket windows via ar_restore_gaps_windows.
 
     Groups the prepped windows by (size, bucketed gap count, bucketed max
     run length), classes that are logarithmic in window and damage scale,
     and restores each class as one batch. Every window keeps the
     sequential path's config (api.AR_DEFAULTS) and seed, so batched ==
-    sequential. Returns the restored windows in ``prepped`` order.
+    sequential. Each class is split over ``ranks``
+    (``ar_restore_windows_dp``). Returns the restored windows in
+    ``prepped`` order.
     """
     from ..api import AR_DEFAULTS
-    from .ar import (ARConfig, ar_restore_gaps_windows, bucket_gap_count,
-                     bucket_max_len)
+    from ..parallel.engines import ar_restore_windows_dp
+    from .ar import ARConfig, bucket_gap_count, bucket_max_len
 
     cfg = ARConfig(**{**AR_DEFAULTS, "bucket": True, **cfg_kwargs})
     by_class: dict[tuple[int, int, int], list[int]] = {}
@@ -251,14 +265,13 @@ def _restore_windows_ar_batched(prepped, *, seed: int, device, **cfg_kwargs):
     for idxs in by_class.values():
         subs = np.stack([prepped[i][4] for i in idxs])
         gaps_list = [prepped[i][6] for i in idxs]
-        out = ar_restore_gaps_windows(subs, gaps_list, cfg, seed,
-                                      device=device).cpu().numpy()
+        out = ar_restore_windows_dp(subs, gaps_list, cfg, ranks, seed).cpu().numpy()
         for j, i in enumerate(idxs):
             results[i] = out[j]
     return results
 
 
-def _restore_windows_unet_batched(prepped, *, seed: int, device, **cfg_kwargs):
+def _restore_windows_unet_batched(prepped, *, seed: int, ranks, **cfg_kwargs):
     """Batch the U-Net over same-size windows via ``restore_clips_unet``.
 
     Every window gets what the facade's U-Net branch (api.py) computes for
@@ -266,15 +279,19 @@ def _restore_windows_unet_batched(prepped, *, seed: int, device, **cfg_kwargs):
     on the window's sample mask, and the stripes of a CPU generator seeded
     with ``seed``, the same for every window, as is the init seed. Each
     size class is one grouped net; every window is then iSTFT'd with its
-    own phase. Returns the restored windows in ``prepped`` order.
+    own phase. A size's batch is split over the ``ranks``' ``dp``
+    axis, padded to a multiple of it with copies of its last window, which
+    are dropped. Returns the restored windows in ``prepped`` order.
     """
     import torch
 
     from ..corrupt import mask_to_bad_columns, training_stripes
     from ..ops import istft, magphase, polar, stft, torch_stft_config
     from ..parallel.batch import restore_clips_unet
+    from ..parallel.mesh import pad_repeat_last
     from .neural import UNetTrainConfig
 
+    device = ranks.device
     scfg = torch_stft_config(1024, 256)
     by_size: dict[int, list[int]] = {}
     for i, (_, size, *_rest) in enumerate(prepped):
@@ -296,11 +313,12 @@ def _restore_windows_unet_batched(prepped, *, seed: int, device, **cfg_kwargs):
             peaks.append(peak)
             keeps.append(keep)
             trains.append(keep * torch.as_tensor(syn, device=device)[None, :])
-        keepb = torch.stack(keeps)[..., None]
+        rows = torch.as_tensor(pad_repeat_last(len(idxs), ranks.n_dp), device=device)
+        keepb = torch.stack(keeps)[rows, ..., None]
         final, _ = restore_clips_unet(
-            torch.stack(norms)[..., None], torch.stack(trains)[..., None],
-            UNetTrainConfig(**cfg_kwargs), [seed] * len(idxs), valid_batch=keepb,
-            composite_mask_batch=keepb, device=device)
+            torch.stack(norms)[rows, ..., None], torch.stack(trains)[rows, ..., None],
+            UNetTrainConfig(**cfg_kwargs), [seed] * len(rows), valid_batch=keepb,
+            composite_mask_batch=keepb, ranks=ranks)
         for j, i in enumerate(idxs):
             results[i] = istft(polar(final[j, ..., 0] * peaks[j], phases[j]), scfg,
                                size).cpu().numpy()

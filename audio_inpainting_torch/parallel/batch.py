@@ -23,9 +23,10 @@ import functools
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_f32
 from ..methods.neural import UNetTrainConfig, UNetTrainer, _seeds
 from ..models import Discriminator, GeneratorUNet, SimpleUNet
+from .mesh import Ranks, gather, ranks_on, shard_range
 
 # The share of the card's free memory that one group's training may take.
 MEMORY_SHARE = 0.9
@@ -127,7 +128,8 @@ def _from_nhwc(x, device) -> torch.Tensor:
 
 def restore_clips_unet(mag_norm_batch, mask_batch,
                        cfg: UNetTrainConfig = UNetTrainConfig(), seed=0,
-                       valid_batch=None, composite_mask_batch=None, device=None):
+                       valid_batch=None, composite_mask_batch=None, device=None,
+                       ranks: Ranks | None = None):
     """Restore a batch of clips' normalized magnitudes, one U-Net per clip.
 
     mag_norm_batch, mask_batch: (B, F, T, 1), any F/T: padded internally
@@ -143,16 +145,22 @@ def restore_clips_unet(mag_norm_batch, mask_batch,
     on synthetic stripes over intact content and composites over the real
     damage (pipelines/serve.py). device: cuda unless "cpu" is named.
     The clips train in as few groups as the card's memory allows
-    (``clip_groups``).
+    (``clip_groups``). ranks (parallel/mesh.py; default one rank on
+    ``device``): the clips split over the ranks' ``dp`` axis (B must
+    divide by it), each rank training its slice on its own device, the
+    clip seeds those of the whole batch; the outputs are gathered.
 
     Returns (composited (B, F, T, 1), per-clip loss of the last epoch (B,),
     None without epochs), on ``device``.
     """
-    dev = resolve_device(device)
+    ranks = ranks_on(ranks, device)
+    dev = ranks.device
     mag, msk = _from_nhwc(mag_norm_batch, dev), _from_nhwc(mask_batch, dev)
     vld = None if valid_batch is None else _from_nhwc(valid_batch, dev)
     cmsk = None if composite_mask_batch is None else _from_nhwc(composite_mask_batch, dev)
-    seeds = clip_seeds(seed, mag.shape[0])
+    mine = shard_range(mag.shape[0], ranks)
+    seeds = clip_seeds(seed, mag.shape[0])[mine]
+    mag, msk, vld, cmsk = (None if a is None else a[mine] for a in (mag, msk, vld, cmsk))
     finals, losses = [], []
     for grp in clip_groups(mag.shape[0], clip_bytes("unet", cfg.bf16, *mag.shape[1:]),
                            dev):
@@ -165,5 +173,5 @@ def restore_clips_unet(mag_norm_batch, mask_batch,
         finals.append(trainer.restore()[0])
         losses.append(loss)
         del trainer
-    return (torch.cat(finals)[..., None],
-            None if losses[0] is None else torch.cat(losses))
+    loss = None if losses[0] is None else gather(torch.cat(losses), ranks)
+    return gather(torch.cat(finals)[..., None], ranks), loss

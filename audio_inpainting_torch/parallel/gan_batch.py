@@ -20,14 +20,16 @@ from __future__ import annotations
 
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_f32
 from ..methods.neural import GANTrainConfig, _gan_run
 from .batch import clip_bytes, clip_groups, clip_seeds
+from .mesh import Ranks, gather, ranks_on, shard_range
 
 
 def restore_clips_gan(norm_batch, real_batch, mask_batch,
                       cfg: GANTrainConfig = GANTrainConfig(), seed=0,
-                      valid_batch=None, n_real: int | None = None, device=None):
+                      valid_batch=None, n_real: int | None = None, device=None,
+                      ranks: Ranks | None = None):
     """Restore a batch of clips' [-1, 1] magnitudes, one GAN pair per clip.
 
     norm_batch, real_batch, mask_batch: (G, F, T); mask 1 = kept; padded
@@ -37,16 +39,25 @@ def restore_clips_gan(norm_batch, real_batch, mask_batch,
     extent when the caller pre-pads unequal lengths; other cells leave the
     L1 term and its denominator. n_real (optional): only the first n_real
     clips are real; the rest never gate the retry. device: cuda unless
-    "cpu" is named.
+    "cpu" is named. ranks (parallel/mesh.py; default one rank on
+    ``device``): the clips split over the ranks' ``dp`` axis (G must
+    divide by it), each rank training its slice, and retrying its own
+    failed clips, on its own device; the clip seeds those of the whole
+    batch; the outputs are gathered.
 
     Returns (composited (G, F, T), (d_loss_last (G,), g_loss_last (G,))),
     the losses None without epochs: ``gan_train_restore``'s contract,
     batched.
     """
-    dev = resolve_device(device)
+    ranks = ranks_on(ranks, device)
+    dev = ranks.device
     norm, real, msk = (as_f32(a, dev) for a in (norm_batch, real_batch, mask_batch))
     vld = None if valid_batch is None else as_f32(valid_batch, dev)
-    seeds = clip_seeds(seed, norm.shape[0])
+    mine = shard_range(norm.shape[0], ranks)
+    seeds = clip_seeds(seed, norm.shape[0])[mine]
+    norm, real, msk, vld = (None if a is None else a[mine] for a in (norm, real, msk, vld))
+    if n_real is not None:
+        n_real = min(max(n_real - mine.start, 0), norm.shape[0])
     per_clip = clip_bytes("gan", cfg.bf16, *norm.shape[1:])
 
     def run(ids: list[int], attempt: int):
@@ -77,4 +88,6 @@ def restore_clips_gan(norm_batch, real_batch, mask_batch,
             out[idx] = out2
             if dl is not None:
                 dl[idx], gl[idx] = dl2, gl2
-    return out, (dl, gl)
+    if dl is not None:
+        dl, gl = gather(dl, ranks), gather(gl, ranks)
+    return gather(out, ranks), (dl, gl)

@@ -16,8 +16,13 @@ Unequal lengths are handled by padding every spectrogram to the batch's
 max frame count with silence marked KEPT (pad columns never train or
 composite into the output, which is trimmed to each clip's true length).
 
-One GPU: ``devices`` above 1 is clamped to 1, as the JAX package clamps to
-the devices it has; sharding clips over several GPUs is not ported.
+Several GPUs: ``devices`` = N serves on N ranks, one process per card
+(parallel/mesh.py ``launch``, NCCL), clamped to the cards there are as the
+JAX package clamps to its devices (on the CPU: to the clips there are,
+over gloo). Every rank reads every clip; the unet and gan batches split
+their clips over the ranks, the other methods' clips are shared out
+whole, and under ``window_s`` each clip's windows are shared. Each rank
+writes the WAVs of its share of the clips, and rank 0 merges the results.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..device import resolve_device
 from ..io import load_mono_normalized, save_wav_int16
 from ..ops import istft, magphase, polar, stft, torch_stft_config
 from ..parallel.batch import clip_seed
+from ..parallel.mesh import Ranks, gather_objects, launch, pad_repeat_last, shard_range
 
 _CFG = torch_stft_config(1024, 256)
 
@@ -92,15 +98,30 @@ def run_serve(input_dir: str, output_dir: str, method: str = "unet",
     clean clip); every other method runs the per-clip facade. window_s:
     long-file mode, each clip restores only fixed windows around its
     detected damage (methods/windowed.py; unet windows batch per window
-    size). devices: must be >= 1; more than one is clamped to one GPU.
+    size). devices: ranks to serve on (>= 1), one per card (cuda:0 ..
+    cuda:N-1), clamped to the cards present; on the CPU to the clips.
     device: cuda unless "cpu" is named.
     """
-    from ..methods.neural import GANTrainConfig, UNetTrainConfig
-    from ..parallel import restore_clips_gan, restore_clips_unet
-
     if devices < 1:
         raise ValueError(f"--devices must be >= 1, got {devices}")
     dev = resolve_device(device)
+    paths = sorted(glob.glob(os.path.join(input_dir, "*.wav")))
+    if not paths:
+        raise FileNotFoundError(f"no .wav files under {input_dir}")
+    n = min(devices, torch.cuda.device_count() if dev.type == "cuda" else len(paths))
+    args = (input_dir, output_dir, method, epochs, originals_dir, seed, window_s)
+    if n == 1:
+        return serve_ranks(Ranks.solo(dev), *args)
+    return launch(serve_ranks, n, devices="cpu" if dev.type == "cpu" else None, args=args)
+
+
+def serve_ranks(ranks: Ranks, input_dir: str, output_dir: str, method: str = "unet",
+                epochs: int = 400, originals_dir: str | None = None, seed: int = 0,
+                window_s: float | None = None) -> dict:
+    """``run_serve``'s work on one rank of ``ranks`` (every rank calls it):
+    the same arguments, on the rank's device; the results of every rank,
+    merged, on every rank."""
+    dev = ranks.device
     paths = sorted(glob.glob(os.path.join(input_dir, "*.wav")))
     if not paths:
         raise FileNotFoundError(f"no .wav files under {input_dir}")
@@ -143,11 +164,21 @@ def run_serve(input_dir: str, output_dir: str, method: str = "unet",
         clips = [c for _, c in kept2]
 
     results = {"method": method, "clips": len(clips), "epochs": epochs}
+    files = {}
+    # the clips whose WAVs this rank writes
+    mine = range(len(clips))[shard_range(len(clips), ranks, exact=False)]
+
+    def write(i: int, y) -> None:
+        sr, _, mag, _, cols = clips[i]
+        name = os.path.basename(paths[i])
+        save_wav_int16(y, sr, os.path.join(output_dir, name))
+        files[name] = {"frames": int(mag.shape[1]), "damaged_cols": int(cols.sum())}
+
     if window_s is not None:
         from ..methods.windowed import restore_windowed
 
-        results.update(window_s=window_s, skipped=skipped, files={})
-        for i, (path, (sr, x, mag, _phase, cols)) in enumerate(zip(paths, clips)):
+        results.update(window_s=window_s)
+        for i, (sr, x, mag, _phase, cols) in enumerate(clips):
             kw = {}
             if method in ("unet", "gan"):
                 kw["epochs"] = epochs
@@ -156,30 +187,44 @@ def run_serve(input_dir: str, output_dir: str, method: str = "unet",
             y = restore_windowed(
                 x, sr, method=method, window_s=window_s, seed=seed,
                 original=orig_clips[i][1] if method == "gan" else None,
-                batch_windows=(method == "unet"), device=dev, **kw)
-            name = os.path.basename(path)
-            save_wav_int16(y, sr, os.path.join(output_dir, name))
-            results["files"][name] = {"frames": int(mag.shape[1]),
-                                      "damaged_cols": int(cols.sum())}
-        results["wall_s"] = round(time.time() - t0, 2)
-        return results
-
-    results.update(skipped=skipped, files={})
-    if method not in ("unet", "gan"):
+                batch_windows=(method == "unet"), ranks=ranks, **kw)
+            if i in mine:
+                write(i, y)
+    elif method not in ("unet", "gan"):
         # every other method runs through the per-clip facade (these are
         # sub-second methods where batching buys nothing)
         from ..api import restore as api_restore
 
-        for path, (sr, x, mag, _phase, cols) in zip(paths, clips):
-            y = api_restore(x, sr, method=method, seed=seed, device=dev)
-            name = os.path.basename(path)
-            save_wav_int16(y, sr, os.path.join(output_dir, name))
-            results["files"][name] = {"frames": int(mag.shape[1]),
-                                      "damaged_cols": int(cols.sum())}
-        results["wall_s"] = round(time.time() - t0, 2)
-        return results
+        for i in mine:
+            sr, x = clips[i][:2]
+            write(i, api_restore(x, sr, method=method, seed=seed, device=dev))
+    else:
+        final = _restore_batch(clips, orig_clips, method, epochs, seed, ranks)
+        for i in mine:
+            sr, x, mag, phase, cols = clips[i]
+            t_i = mag.shape[1]
+            out_mag = torch.as_tensor(final[i, :mag.shape[0], :t_i], dtype=torch.float32,
+                                      device=dev)
+            write(i, istft(polar(out_mag, phase), _CFG, len(x)).cpu().numpy())
+
+    merged = {}
+    for part in gather_objects(files, ranks):
+        merged.update(part)
+    results.update(skipped=skipped,
+                   files={os.path.basename(p): merged[os.path.basename(p)] for p in paths},
+                   wall_s=round(time.time() - t0, 2))
+    return results
+
+
+def _restore_batch(clips, orig_clips, method: str, epochs: int, seed: int,
+                   ranks: Ranks) -> np.ndarray:
+    """The unet or gan batch over every clip, split over ``ranks``: the
+    restored magnitudes (G, F4, T_pad) on the host."""
+    from ..methods.neural import GANTrainConfig, UNetTrainConfig
+    from ..parallel import restore_clips_gan, restore_clips_unet
 
     f = clips[0][2].shape[0]
+    g = len(clips)
     # frame count: the batch's max, padded to the models' T % 32
     t_max = max(c[2].shape[1] for c in clips)
     t_pad = t_max + ((-t_max) % 32)
@@ -192,6 +237,10 @@ def run_serve(input_dir: str, output_dir: str, method: str = "unet",
     if fpad:
         mags = np.pad(mags, ((0, 0), (0, fpad), (0, 0)))
         masks = np.pad(masks, ((0, 0), (0, fpad), (0, 0)), constant_values=1.0)
+    # the ranks' divisor: repeat the last clip, drop its outputs (the
+    # copies' seeds follow on, clip_seed(seed, i) for i >= g; the real
+    # clips keep theirs)
+    rows = pad_repeat_last(g, ranks.n_dp)
 
     if method == "unet":
         peak = np.maximum(mags.max(axis=(1, 2), keepdims=True), 1e-12)
@@ -208,37 +257,27 @@ def run_serve(input_dir: str, output_dir: str, method: str = "unet",
         # true-extent cells (real holes have no target and stay out)
         valid = _true_extent_mask(norm.shape, f, clips) * masks
         out, _ = restore_clips_unet(
-            norm[..., None], train_mask[..., None], UNetTrainConfig(epochs=epochs),
-            seed, valid_batch=valid[..., None], composite_mask_batch=masks[..., None],
-            device=dev)
-        final = out[..., 0].cpu().numpy() * peak
-    else:
-        rmags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in orig_clips])
-        if fpad:
-            rmags = np.pad(rmags, ((0, 0), (0, fpad), (0, 0)))
-        lo = mags.min(axis=(1, 2), keepdims=True)
-        hi = np.maximum(mags.max(axis=(1, 2), keepdims=True), lo + 1e-12)
-        norm = (2 * (mags - lo) / (hi - lo) - 1).astype(np.float32)
-        rnorm = (2 * (rmags - lo) / (hi - lo) - 1).astype(np.float32)
-        # each clip's true (f, t_i) extent: pad cells must not enter the L1
-        # reconstruction term
-        valid = _true_extent_mask(norm.shape, f, clips)
-        # the readout policy of Part 2's GAN leg (gap-scoped weight EMA and
-        # the collapse retry); the 0.04 collapse signature is calibrated at
-        # convergence, so the retry only arms at the full budget
-        cfg = GANTrainConfig(epochs=epochs, bf16=True, ema_decay=0.99, ema_scope="gap",
-                             retry_l1=0.04 if epochs >= 1500 else 0.0)
-        out, _ = restore_clips_gan(norm, rnorm, masks, cfg, seed, valid_batch=valid,
-                                   device=dev)
-        final = (out.cpu().numpy() + 1) / 2 * (hi - lo) + lo
-
-    for i, (path, (sr, x, mag, phase, cols)) in enumerate(zip(paths, clips)):
-        t_i = mag.shape[1]
-        out_mag = torch.as_tensor(final[i, :f, :t_i], dtype=torch.float32, device=dev)
-        y = istft(polar(out_mag, phase), _CFG, len(x)).cpu().numpy()
-        name = os.path.basename(path)
-        save_wav_int16(y, sr, os.path.join(output_dir, name))
-        results["files"][name] = {"frames": int(t_i),
-                                  "damaged_cols": int(cols.sum())}
-    results["wall_s"] = round(time.time() - t0, 2)
-    return results
+            norm[rows, ..., None], train_mask[rows, ..., None],
+            UNetTrainConfig(epochs=epochs), seed, valid_batch=valid[rows, ..., None],
+            composite_mask_batch=masks[rows, ..., None], ranks=ranks)
+        return out[:g, ..., 0].cpu().numpy() * peak
+    rmags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in orig_clips])
+    if fpad:
+        rmags = np.pad(rmags, ((0, 0), (0, fpad), (0, 0)))
+    lo = mags.min(axis=(1, 2), keepdims=True)
+    hi = np.maximum(mags.max(axis=(1, 2), keepdims=True), lo + 1e-12)
+    norm = (2 * (mags - lo) / (hi - lo) - 1).astype(np.float32)
+    rnorm = (2 * (rmags - lo) / (hi - lo) - 1).astype(np.float32)
+    # each clip's true (f, t_i) extent: pad cells must not enter the L1
+    # reconstruction term
+    valid = _true_extent_mask(norm.shape, f, clips)
+    # the readout policy of Part 2's GAN leg (gap-scoped weight EMA and
+    # the collapse retry); the 0.04 collapse signature is calibrated at
+    # convergence, so the retry only arms at the full budget
+    cfg = GANTrainConfig(epochs=epochs, bf16=True, ema_decay=0.99, ema_scope="gap",
+                         retry_l1=0.04 if epochs >= 1500 else 0.0)
+    # the copies never gate the retry
+    pads = {"n_real": g} if len(rows) > g else {}
+    out, _ = restore_clips_gan(norm[rows], rnorm[rows], masks[rows], cfg, seed,
+                               valid_batch=valid[rows], ranks=ranks, **pads)
+    return (out[:g].cpu().numpy() + 1) / 2 * (hi - lo) + lo

@@ -2,6 +2,7 @@
 """Smoke test of audio_inpainting_torch on one CUDA GPU (an H100 here).
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py multi      # phase multi alone, no result lines
 
 It builds the port's CUDA kernel from csrc/, holds it against its plain
 torch version at the shapes the restore path gives it, times both, then
@@ -24,7 +25,13 @@ at full width (phase ``riffusion``: seeded random weights written as
 safetensors and loaded by ``load_riffusion``, held to the SD-v1 key
 manifest, ``riffusion_restore_audio`` on Part 2's clip at 512^2 with 50
 PLMS steps and CFG 7.5, the UNet, VAE and loop timed beside their FLOP
-bounds, GPU against CPU). Each phase prints one JSON line;
+bounds, GPU against CPU) and the multi-device layer (phase ``multi``: one
+rank on NCCL, two and four ranks sharing the card over gloo, spawned by
+``parallel.launch``; the shared U-Net at (4, 516, 1728) and, on a 2 x 2
+mesh, on two 60 s spectrograms; the per-clip U-Nets and GANs, the 60 s
+clip's AR window classes, GP restarts, the frame-parallel STFT and
+serve's rank body over the ranks, each against one rank; on two cards,
+the same on NCCL and run_serve(devices=2)). Each phase prints one JSON line;
 any failed check raises. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -143,6 +150,20 @@ SD_FORWARD_RTOL = 1e-4         # GPU vs CPU, of the output's peak
 SD_LATENT_RTOL = 1e-4          # the tiny inpaint's latents, of their peak
 SD_VS_CPU_CANVAS = 256         # the VAE's GPU-vs-CPU size
 SD_PROFILE_STEPS = 10          # the profiled loop: 11 evaluations
+# phase multi (the multi-device layer)
+MULTI_SHAPE = (4, 516, 1728)   # mode 1: the shared U-Net's batch
+MULTI_STEPS = 3
+MULTI_UNET_EPOCHS = 20         # modes 2 and 5 on the serve corpus
+MULTI_GAN_EPOCHS = 20
+MULTI_SPATIAL_STEPS = 2        # mode 3 on two 60 s spectrograms
+RANKS_ATOL = 1e-5              # ranks against one rank (of peak for outputs)
+GP_RANKS_ATOL = 5e-5
+# F3's readings at two ranks on the H100 (theta 129 % and the posterior
+# 9.4e-3 from one rank's, the same in every run): a drift beyond them fails
+GP_F3_THETA_REL = 1.2912
+GP_F3_POSTERIOR_ERR = 9.42e-3
+STFT_RTOL_OF_PEAK = 1e-4
+MULTI_DEVICE = "cuda:0"        # the card the gloo ranks share
 
 
 def emit(obj) -> None:
@@ -1501,6 +1522,7 @@ def batch_size_effect(dev, batch_call, facade_calls) -> dict:
     from audio_inpainting_torch.ops import ar_scan
 
     (signals, gaps_list, cfg, seed), kwargs = batch_call
+    signals = torch.as_tensor(signals).cpu().numpy()
     (fargs, fkw), = [c for c in facade_calls if np.array_equal(c[0][0], signals[0])]
     facade = api.restore(*fargs, **fkw)
     alone = ar.ar_restore_gaps_windows(signals[:1], gaps_list[:1], cfg, seed,
@@ -2149,12 +2171,468 @@ def live_api(dev, tmp: Path):
     return rows, kernel_rows("live", calls), total
 
 
-def main() -> int:
+# ------------------------------------------------------------ phase multi --
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` replaced by ``value`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def multi_inputs():
+    """Mode 1's batch at full width: (4, 516, 1728, 1) input, target and
+    mask from a numpy seed."""
+    rng = np.random.RandomState(0)
+    shape = (*MULTI_SHAPE, 1)
+    tgt = rng.rand(*shape).astype(np.float32)
+    mask = (rng.rand(*shape) > 0.3).astype(np.float32)
+    return tgt * mask, tgt, mask
+
+
+def multi_mode1(ranks) -> dict:
+    """The shared U-Net over the ranks' dp axis: a whole fit_shared_unet
+    call of MULTI_STEPS steps (its loss is the one compared; its wall
+    holds the uploads, the model's build and the state's copy back), then
+    the steps alone: the model and the rank's shards built once, one cold
+    step, and MULTI_STEPS steps timed each to the end of its device work
+    (every rank's, the all-reduce waiting for the others); and the
+    all-reduce alone of a buffer of the parameters' size, the sum
+    checked. One rank also times steps at half the batch, the share of
+    each of two ranks."""
+    from audio_inpainting_torch.parallel import fit_shared_unet, init_shared_unet
+    from audio_inpainting_torch.parallel.mesh import all_reduce_sum, shard_batch
+    from audio_inpainting_torch.parallel.train import nchw, shared_unet_train_step
+
+    x, y, m = multi_inputs()
+    fit_shared_unet(x, y, m, ranks, steps=1)                   # cold
+    (_, loss), fit_s = timed(lambda: fit_shared_unet(x, y, m, ranks, steps=MULTI_STEPS))
+    (model, opt, xs, ys, ms_), setup_s = timed(lambda: (
+        *init_shared_unet(ranks),
+        *(shard_batch(nchw(a, ranks.device), ranks) for a in (x, y, m))))
+    n_cells = x.size
+
+    def step():
+        return shared_unet_train_step(model, opt, xs, ys, ms_, ranks, n_cells)
+
+    step()                                                     # cold
+    step_ms = [timed(step)[1] * 1e3 for _ in range(MULTI_STEPS)]
+    res = {}
+    if ranks.world == 1:
+        # one rank at half the batch: two ranks' share each
+        half = [a[:len(a) // 2] for a in (xs, ys, ms_)]
+        shared_unet_train_step(model, opt, *half, ranks, n_cells)     # cold
+        res["half_batch_step_ms"] = [timed(lambda: shared_unet_train_step(
+            model, opt, *half, ranks, n_cells))[1] * 1e3 for _ in range(MULTI_STEPS)]
+    n = sum(p.numel() for p in model.parameters()) + 1
+    buf = torch.ones(n, device=ranks.device)
+    all_reduce_sum(buf, ranks)
+    if not torch.all(buf == ranks.world):
+        raise AssertionError(f"multi: the all-reduce over {ranks.world} ranks "
+                             f"gave {buf.unique().tolist()}")
+    reduce_ms = [timed(lambda: all_reduce_sum(buf, ranks))[1] * 1e3 for _ in range(10)]
+    return {"loss": loss, "fit_call_s": fit_s, "setup_s": setup_s, "step_ms": step_ms,
+            "fit_call_less_steps_s": fit_s - sum(step_ms) / 1e3, **res,
+            "all_reduce_floats": n, "all_reduce_ms": reduce_ms}
+
+
+def ranks_batches(fn, world: int, n: int):
+    """One rank running the ranks' batches: ``fn(rows)`` for every rank's
+    rows of an n-item batch (padded as the ranks pad it), concatenated on
+    the CPU and cut to n."""
+    from audio_inpainting_torch.parallel.mesh import split_rows
+
+    return torch.cat([fn(rows.tolist()).cpu() for rows in split_rows(n, world)])[:n]
+
+
+def multi_clips(ranks, lead: bool) -> dict:
+    """Modes 2 and 5 on the serve corpus's spectrograms: the per-clip
+    U-Nets (fp32) and GANs (bf16) with the clips over the ranks, against
+    one rank running the ranks' batches (1e-5 of peak), and at
+    UNET_HELD_EPOCHS / GAN_HELD_EPOCHS fp32 against one rank's whole
+    batch by twice the batch-against-single bounds (a rank's batch and
+    the whole batch each part from single clips by up to one bound);
+    cuDNN deterministic."""
+    from audio_inpainting_torch.methods import neural
+    from audio_inpainting_torch.parallel import restore_clips_gan, restore_clips_unet
+
+    mags, masks = corpus_spectrograms(SERVE_CLIPS)
+    inp, real, msk = gan_inputs(mags, masks)
+    seeds = [100 + g for g in range(SERVE_CLIPS)]
+    dev, world, n = ranks.device, ranks.world, SERVE_CLIPS
+
+    def unet(epochs, r=None):
+        cfg = neural.UNetTrainConfig(epochs=epochs)
+        if r is None:
+            return restore_clips_unet(mags[..., None], masks[..., None], cfg, seeds,
+                                      ranks=ranks)[0][..., 0]
+        return restore_clips_unet(mags[r, ..., None], masks[r, ..., None], cfg,
+                                  [seeds[i] for i in r], device=dev)[0][..., 0]
+
+    def gan(epochs, bf16, r=None):
+        cfg = neural.GANTrainConfig(epochs=epochs, bf16=bf16, ema_decay=0.99,
+                                    ema_scope="gap")
+        if r is None:
+            return restore_clips_gan(inp, real, msk, cfg, seeds, ranks=ranks)[0]
+        return restore_clips_gan(inp[r], real[r], msk[r], cfg, [seeds[i] for i in r],
+                                 device=dev)[0]
+
+    res = {}
+    with cudnn_deterministic():
+        uout, res["unet_wall_s"] = timed(lambda: unet(MULTI_UNET_EPOCHS))
+        gout, res["gan_wall_s"] = timed(lambda: gan(MULTI_GAN_EPOCHS, True))
+        uheld, gheld = unet(UNET_HELD_EPOCHS), gan(GAN_HELD_EPOCHS, False)
+        if lead:
+            res["unet_vs_ranks_batches_err"] = rel_err(uout, ranks_batches(
+                lambda r: unet(MULTI_UNET_EPOCHS, r), world, n))
+            res["gan_vs_ranks_batches_err"] = rel_err(gout, ranks_batches(
+                lambda r: gan(MULTI_GAN_EPOCHS, True, r), world, n))
+            every = list(range(n))
+            res["unet_held_vs_one_rank_err"] = rel_err(uheld, unet(UNET_HELD_EPOCHS, every))
+            res["gan_held_vs_one_rank_err"] = rel_err(gheld, gan(GAN_HELD_EPOCHS, False,
+                                                                 every))
+            for key, tol in (("unet_vs_ranks_batches_err", RANKS_ATOL),
+                             ("gan_vs_ranks_batches_err", RANKS_ATOL),
+                             ("unet_held_vs_one_rank_err", 2 * UNET_COMPOSITE_TOL),
+                             ("gan_held_vs_one_rank_err", 2 * GAN_COMPOSITE_TOL)):
+                if not res[key] <= tol:
+                    raise AssertionError(f"multi at {world} ranks: {key} {res[key]} > {tol}")
+    return res
+
+
+def multi_windows(ranks, lead: bool, damaged, touched) -> dict:
+    """Mode 6: the 60 s engine clip's batched AR classes over the ranks
+    (restore_windowed, batch_windows=True), against one rank running the
+    ranks' batches (1e-5 of peak) and one rank's whole classes (the
+    windowed phase's batched-against-sequential bounds)."""
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.methods.windowed import restore_windowed
+    from audio_inpainting_torch.ops import ar_scan
+
+    kw = dict(method="ar", window_s=WINDOW_S, margin=MARGIN, seed=0, batch_windows=True)
+    with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy:
+        ar_scan.LAUNCHES = 0
+        out, wall = timed(lambda: restore_windowed(damaged, SR, ranks=ranks, **kw))
+        launches = ar_scan.LAUNCHES
+    res = {"wall_s": wall, "launches": launches, "calls": spy.calls}
+    if not np.array_equal(out[~touched], damaged[~touched]):
+        raise AssertionError("multi windows changed samples outside the gaps +- margin")
+    if lead:
+        real = ar.ar_restore_gaps_windows
+
+        def split(signals, gaps_list, cfg, seed=0, **k):
+            sig = torch.as_tensor(signals)
+            return ranks_batches(lambda r: real(sig[r], [gaps_list[i] for i in r], cfg,
+                                                seed, **k), ranks.world, len(gaps_list))
+
+        with patched(ar, "ar_restore_gaps_windows", split):
+            same = restore_windowed(damaged, SR, device=ranks.device, **kw)
+        one = restore_windowed(damaged, SR, device=ranks.device, **kw)
+        peak = np.abs(one).max()
+        res.update(vs_ranks_batches_err=float(np.abs(out - same).max() / peak),
+                   vs_one_rank_err=float(np.abs(out - one).max() / peak),
+                   vs_one_rank_agreement_db=agreement_snr_db(
+                       torch.as_tensor(one[touched]), torch.as_tensor(out[touched])))
+        if not (res["vs_ranks_batches_err"] <= RANKS_ATOL
+                and res["vs_one_rank_err"] <= BATCH_ERR_OF_PEAK
+                and res["vs_one_rank_agreement_db"] >= BATCH_AGREEMENT_DB):
+            raise AssertionError(f"multi windows at {ranks.world} ranks: "
+                                 f"{ {k: v for k, v in res.items() if k != 'calls'} }")
+    return res
+
+
+def multi_gp(ranks, lead: bool, clean) -> dict:
+    """Mode 7 on Part 0's segment (facade_gp's): the restarts over the
+    ranks, against one rank running the ranks' batches (5e-5) and one
+    rank's gp_fit_predict: the fill within GP_MARGIN_DB, and the winner's
+    theta and the posterior no further from one rank's than F3 put them
+    (ROADMAP Queue 3: on the card the winner moves with the restart
+    batch)."""
+    from audio_inpainting_torch.corrupt import contiguous_gap_mask
+    from audio_inpainting_torch.methods import gp
+    from audio_inpainting_torch.metrics import local_snr_db
+    from audio_inpainting_torch.parallel import Ranks, gp_fit_predict_mesh
+    from audio_inpainting_torch.parallel.mesh import split_rows
+
+    n = int(0.05 * SR)
+    seg = clean[len(clean) // 2:len(clean) // 2 + n]
+    _, (gs, ge) = contiguous_gap_mask(n, 0.2)
+    keep = np.ones(n, bool)
+    keep[gs:ge] = False
+    t = np.arange(n, dtype=np.float32) / SR
+    args = (t[keep], seg[keep], t[~keep], gp.GPConfig())
+    (mu, sd, theta), wall = timed(lambda: gp_fit_predict_mesh(*args, ranks, 0))
+    res = {"wall_s": wall, "restarts": gp.GPConfig().n_restarts + 1}
+    if lead:
+        def one_rank_fit(x, y):     # gp_fit_predict's fit
+            # the likelihood's gradient at the first rank's starts, in its
+            # batch against in the whole one (F3)
+            u0, loss, _ = gp._restarts(x, y, args[3], 0)
+            first = split_rows(len(u0), ranks.world, fill=0)[0]
+            g_all, g_part = (gp._value_and_grad(loss, u)[1][:len(first)]
+                             for u in (u0, u0[first]))
+            res["grad_batch_rel"] = float((g_all - g_part).abs().max() / g_all.abs().max())
+            return gp._fit(x, y, args[3], 0)
+
+        mu_s, sd_s, _ = gp_fit_predict_mesh(*args, Ranks.solo(ranks.device), 0,
+                                            batches=ranks.world)
+        mu_1, _, theta_1 = gp.fit_predict_with(one_rank_fit, *args, ranks.device)
+        fill, fill_1 = seg.copy(), seg.copy()
+        fill[gs:ge], fill_1[gs:ge] = mu.cpu().numpy(), mu_1.cpu().numpy()
+        res.update(vs_ranks_batches_err=max(float((mu - mu_s).abs().max()),
+                                            float((sd - sd_s).abs().max())),
+                   vs_one_rank_err=float((mu - mu_1).abs().max()),
+                   theta_vs_one_rank_rel=float(((theta - theta_1) / theta_1).abs().max()),
+                   local_snr_db=float(local_snr_db(seg, fill, gs, ge, ranks.device)),
+                   one_rank_local_snr_db=float(local_snr_db(seg, fill_1, gs, ge,
+                                                            ranks.device)))
+        if not (res["vs_ranks_batches_err"] <= GP_RANKS_ATOL
+                and res["local_snr_db"] >= res["one_rank_local_snr_db"] - GP_MARGIN_DB
+                and res["theta_vs_one_rank_rel"] <= GP_F3_THETA_REL
+                and res["vs_one_rank_err"] <= GP_F3_POSTERIOR_ERR):
+            raise AssertionError(f"multi gp at {ranks.world} ranks: {res}")
+    return res
+
+
+def multi_stft(ranks, lead: bool, damaged) -> dict:
+    """The frame-parallel STFT of the 60 s clip against ops.stft."""
+    from audio_inpainting_torch.ops import stft, torch_stft_config
+    from audio_inpainting_torch.parallel import stft_frame_parallel
+
+    cfg = torch_stft_config(1024, 256)
+    (re, im), wall = timed(lambda: stft_frame_parallel(damaged, cfg, ranks))
+    res = {"wall_s": wall, "frames": int(re.shape[0])}
+    if lead:
+        z = stft(torch.as_tensor(damaged, device=ranks.device), cfg).T
+        res["rel_err_of_peak"] = max(rel_err(re, z.real), rel_err(im, z.imag))
+        if not res["rel_err_of_peak"] <= STFT_RTOL_OF_PEAK:
+            raise AssertionError(f"multi stft: {res}")
+    return res
+
+
+def multi_serve(ranks, lead: bool, din: Path, tmp: Path) -> dict:
+    """serve_ranks over the four clips: ar (every WAV byte-equal to one
+    rank's) and the U-Net at UNET_HELD_EPOCHS, cuDNN deterministic (WAVs
+    within BATCH_AGREEMENT_DB of one rank's)."""
+    from audio_inpainting_torch.io import load_mono_normalized
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.parallel import Ranks
+    from audio_inpainting_torch.pipelines.serve import serve_ranks
+
+    out = tmp / f"multi_serve_{ranks.world}"
+    with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy:
+        ar_scan.LAUNCHES = 0
+        res_ar, wall_ar = timed(lambda: serve_ranks(ranks, str(din), str(out / "ar"), "ar"))
+        launches = ar_scan.LAUNCHES
+    with cudnn_deterministic():
+        _, wall_unet = timed(lambda: serve_ranks(ranks, str(din), str(out / "unet"), "unet",
+                                                 epochs=UNET_HELD_EPOCHS))
+    res = {"ar_wall_s": wall_ar, "unet_wall_s": wall_unet, "launches": launches,
+           "calls": spy.calls, "clips": res_ar["clips"]}
+    if lead:
+        solo = Ranks.solo(ranks.device)
+        serve_ranks(solo, str(din), str(out / "ar1"), "ar")
+        with cudnn_deterministic():
+            serve_ranks(solo, str(din), str(out / "unet1"), "unet", epochs=UNET_HELD_EPOCHS)
+        agreement = []
+        for name in sorted(res_ar["files"]):
+            if (out / "ar" / name).read_bytes() != (out / "ar1" / name).read_bytes():
+                raise AssertionError(f"multi serve ar: {name} differs from one rank's")
+            agreement.append(agreement_snr_db(
+                torch.as_tensor(load_mono_normalized(str(out / "unet1" / name))[1]),
+                torch.as_tensor(load_mono_normalized(str(out / "unet" / name))[1])))
+        res.update(ar_byte_equal=True, unet_agreement_db=agreement)
+        if not min(agreement) >= BATCH_AGREEMENT_DB:
+            raise AssertionError(f"multi serve unet: agreement {agreement} dB")
+    return res
+
+
+def multi_rank(ranks, tmp: str, modes: tuple[str, ...]) -> dict:
+    """One rank of phase ``multi``: ``modes`` of "mode1", "clips",
+    "windows", "gp", "stft", "serve", in that order, each timed; rank 0
+    also holds each against one rank. Returns, on rank 0, the results,
+    with every rank's launch counts, peak memory and start time."""
+    from audio_inpainting_torch.parallel.mesh import gather_objects
+
+    ready = time.time()
+    lead, tmp = ranks.rank == 0, Path(tmp)
+    torch.cuda.reset_peak_memory_stats(ranks.device)
+    res = {"backend": ranks.backend, "ranks": ranks.world}
+    if "mode1" in modes:
+        res["mode1"] = multi_mode1(ranks)
+    if "clips" in modes:
+        res["clips"] = multi_clips(ranks, lead)
+    if {"windows", "gp", "stft"} & set(modes):
+        engine = np.load(tmp / "engine.npz")
+        damaged, touched = engine["damaged"], engine["touched"]
+    if "windows" in modes:
+        res["windows"] = multi_windows(ranks, lead, damaged, touched)
+    if "gp" in modes:
+        res["gp"] = multi_gp(ranks, lead, np.load(tmp / "facade_clean.npy"))
+    if "stft" in modes:
+        res["stft"] = multi_stft(ranks, lead, damaged)
+    if "serve" in modes:
+        res["serve"] = multi_serve(ranks, lead, tmp / "serve_in", tmp)
+    launches = {k: res[k]["launches"] for k in ("windows", "serve") if k in res}
+    res.update(ready_by_rank=gather_objects(ready, ranks),
+               launches_by_rank=gather_objects(launches, ranks),
+               peak_gb_by_rank=gather_objects(
+                   torch.cuda.max_memory_allocated(ranks.device) / 1e9, ranks))
+    calls = {k: res[k].pop("calls") for k in launches}
+    # the kernel at rank 0's shapes, alone, against its plain loop
+    res["kernel_rows"] = [row for k, c in calls.items()
+                          for row in kernel_rows(f"multi_{k}", c)] if lead else []
+    return res
+
+
+def spatial_inputs():
+    """Two 60 s spectrograms (synth_music_clip 3 and 4), normalized,
+    padded to F % 4 and T % 16, a seeded 20 % of their columns hidden."""
+    from audio_inpainting_torch.corrupt import synth_music_clip
+    from audio_inpainting_torch.ops import magphase, stft, torch_stft_config
+
+    mags = []
+    for seed in (3, 4):
+        mag, _ = magphase(stft(torch.as_tensor(synth_music_clip(seed, SR, ENGINE_SECONDS)),
+                               torch_stft_config(1024, 256)))
+        f, t = mag.shape
+        mags.append(torch.nn.functional.pad(mag / mag.max(), (0, (-t) % 16, 0, (-f) % 4)))
+    tgt = torch.stack(mags)[..., None].numpy()
+    rng = np.random.RandomState(0)
+    mask = np.broadcast_to((rng.rand(1, 1, tgt.shape[2], 1) > 0.2), tgt.shape)
+    mask = mask.astype(np.float32)
+    return tgt * mask, tgt, mask
+
+
+def spatial_rank(ranks) -> dict:
+    """Mode 3 on a 2 x 2 mesh: the shared U-Net with the two 60 s
+    spectrograms over dp and their time axis over tp, MULTI_SPATIAL_STEPS
+    Adam steps and a forward; rank 0 holds both against one rank."""
+    from audio_inpainting_torch.parallel import (Ranks, fit_shared_unet_spatial,
+                                                 make_mesh_2d, predict_spatial)
+    from audio_inpainting_torch.parallel.mesh import gather_objects
+
+    ready = time.time()
+    torch.cuda.reset_peak_memory_stats(ranks.device)
+    mesh2 = make_mesh_2d(ranks, 2, 2)
+    inp, tgt, m = spatial_inputs()
+    fit_shared_unet_spatial(inp, tgt, m, mesh2, steps=1)           # cold
+    (state, loss), fit_s = timed(lambda: fit_shared_unet_spatial(
+        inp, tgt, m, mesh2, steps=MULTI_SPATIAL_STEPS))
+    fwd, fwd_s = timed(lambda: predict_spatial(state, tgt, mesh2))
+    res = {"shape": list(tgt.shape[:3]), "loss": loss, "fit_wall_s": fit_s,
+           "forward_wall_s": fwd_s,
+           "peak_gb_by_rank": gather_objects(
+               torch.cuda.max_memory_allocated(ranks.device) / 1e9, ranks),
+           "ready_by_rank": gather_objects(ready, ranks)}
+    if ranks.rank == 0:
+        solo = Ranks.solo(ranks.device)
+        fit_shared_unet_spatial(inp, tgt, m, solo, steps=1)            # cold
+        (_, loss1), res["one_rank_fit_wall_s"] = timed(lambda: fit_shared_unet_spatial(
+            inp, tgt, m, solo, steps=MULTI_SPATIAL_STEPS))
+        fwd1, res["one_rank_forward_wall_s"] = timed(lambda: predict_spatial(state, tgt, solo))
+        res.update(dloss=abs(loss - loss1), forward_err=float((fwd - fwd1).abs().max()),
+                   one_rank_peak_gb=torch.cuda.max_memory_allocated(ranks.device) / 1e9)
+        if not (res["dloss"] <= RANKS_ATOL and res["forward_err"] <= RANKS_ATOL):
+            raise AssertionError(f"multi spatial: {res}")
+    return res
+
+
+def launched(fn, world: int, **kw):
+    """(rank 0's result of launch(fn, world, **kw), the seconds from the
+    call to the last rank's start)."""
+    from audio_inpainting_torch.parallel import launch
+
+    t0 = time.time()
+    res = launch(fn, world, **kw)
+    return res, max(res["ready_by_rank"]) - t0
+
+
+def phase_multi(dev, tmp: Path, clip):
+    """The multi-device layer: one rank on NCCL (modes 1 and 7, NCCL's
+    all-reduce, broadcast and all-gather run at world 1), two ranks and
+    four (dp 2 x tp 2) sharing this card over gloo (modes 1, 2, 3, 5, 6,
+    7, the frame-parallel STFT, serve's rank body), each mode held
+    against one rank; on a machine with two cards, the two-rank run on
+    NCCL, one rank a card, and run_serve(devices=2). Ranks that share a
+    card measure the layer's overhead, not scaling."""
+    from audio_inpainting_torch.corrupt import synth_music_clip
+
+    _, damaged, touched = clip
+    mdir = tmp / "multi"
+    mdir.mkdir()
+    np.savez(mdir / "engine.npz", damaged=damaged, touched=touched)
+    np.save(mdir / "facade_clean.npy", synth_music_clip(0, SR, 10.0))
+    serve_corpus(mdir)
+    torch.cuda.empty_cache()        # the ranks' processes share the card
+    every = ("mode1", "clips", "windows", "gp", "stft", "serve")
+    t0 = time.perf_counter()
+    one, one_s = launched(multi_rank, 1, devices=MULTI_DEVICE,
+                          args=(str(mdir), ("mode1", "gp")))
+    two, two_s = launched(multi_rank, 2, devices=MULTI_DEVICE, backend="gloo",
+                          args=(str(mdir), every))
+    four, four_s = launched(spatial_rank, 4, devices=MULTI_DEVICE, backend="gloo")
+    dloss = abs(two["mode1"]["loss"] - one["mode1"]["loss"])
+    if not dloss <= RANKS_ATOL:
+        raise AssertionError(f"multi mode 1: two ranks' loss {two['mode1']['loss']} "
+                             f"against one rank's {one['mode1']['loss']}")
+    for r, counts in enumerate(two["launches_by_rank"]):
+        if not all(counts.values()):
+            raise AssertionError(f"multi: rank {r} launched no kernel on a path: {counts}")
+    nccl = "not run: 1 card"
+    if torch.cuda.device_count() >= 2:
+        nccl = multi_cards(mdir, every)
+    else:
+        print("multi: the multi-card NCCL path was not run on 1 card", flush=True)
+    launches = sum(sum(c.values()) for c in two["launches_by_rank"])
+    rows = two.pop("kernel_rows")
+    emit({"phase": "multi", "wall_s": time.perf_counter() - t0,
+          "launch_s": {"1_nccl": one_s, "2_gloo": two_s, "4_gloo": four_s},
+          "one_rank_nccl": one, "two_ranks_gloo": two, "four_ranks_gloo_2x2": four,
+          "mode1_dloss_two_vs_one": dloss, "two_cards_nccl": nccl,
+          "tolerance": f"ranks against one rank's batches {RANKS_ATOL:g} (of peak); "
+                       f"against one rank: losses {RANKS_ATOL:g}, GP {GP_RANKS_ATOL:g}, "
+                       f"the batch-against-single and windowed bounds",
+          "kernels": rows})
+    return {"multi": launches}, rows
+
+
+def multi_cards(mdir: Path, every: tuple[str, ...]) -> dict:
+    """On two cards or more: the two-rank run on NCCL, one rank a card
+    (and the 2 x 2 mesh on four cards), and run_serve(devices=2) with ar,
+    byte-equal to devices=1."""
+    from audio_inpainting_torch.pipelines.serve import run_serve
+
+    two, two_s = launched(multi_rank, 2, args=(str(mdir), every))
+    two.pop("kernel_rows")
+    res = {"launch_s": {"2_nccl": two_s}, "two_ranks_nccl": two}
+    if torch.cuda.device_count() >= 4:
+        res["four_ranks_nccl_2x2"], res["launch_s"]["4_nccl"] = launched(spatial_rank, 4)
+    one = run_serve(str(mdir / "serve_in"), str(mdir / "cards_1"), method="ar")
+    both = run_serve(str(mdir / "serve_in"), str(mdir / "cards_2"), method="ar", devices=2)
+    for name in one["files"]:
+        if (mdir / "cards_1" / name).read_bytes() != (mdir / "cards_2" / name).read_bytes():
+            raise AssertionError(f"run_serve(devices=2): {name} differs from devices=1")
+    return {**res, "serve_devices_2_wall_s": both["wall_s"], "serve_byte_equal": True}
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     phase_env(dev)
+    if argv == ["multi"]:           # phase multi alone, for work on that layer
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
+        print(gpu_name_and_power(), flush=True)
+        return 0
     rows = phase_kernel(dev)
     phase_nmf(dev)
     phase_neural(dev)
@@ -2172,8 +2650,10 @@ def main() -> int:
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
         by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
+        multi_launches, multi_rows = phase_multi(dev, Path(tmp), clip)
+        by_path.update(multi_launches)
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
-              + serve_rows)
+              + serve_rows + multi_rows)
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",
@@ -2198,4 +2678,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
