@@ -41,6 +41,26 @@ def save_spectrogram_png(audio: np.ndarray, sr: int, path: str,
     return path
 
 
+def save_image_png(array2d: np.ndarray, path: str, cmap: str = "inferno",
+                   origin: str = "lower") -> str:
+    """Save a 2-D array as a colormapped PNG (raw magnitude views), by the
+    stdlib writer: min-max scaled through the inferno colormap, row 0 at
+    the bottom with ``origin="lower"`` (imshow's), at the top with
+    ``"upper"``. ValueError for any other colormap or origin."""
+    if cmap != "inferno" or origin not in ("lower", "upper"):
+        raise ValueError(f"save_image_png draws cmap 'inferno' with origin 'lower' or "
+                         f"'upper', not {cmap!r} with {origin!r}")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return _write_png(path, _inferno_image(np.asarray(array2d, np.float32), origin))
+
+
+def _inferno_image(a: np.ndarray, origin: str = "lower") -> np.ndarray:
+    """(H, W, 3) uint8: ``a`` min-max scaled through inferno, row 0 at the
+    bottom for ``origin="lower"``."""
+    rgb = _colormap_inferno(_minmax01(a))
+    return rgb[::-1] if origin == "lower" else rgb
+
+
 def unet_panels_viz(input_mag, pred_mag, target_mag, path: str) -> str:
     """The U-Net figure: input, prediction and ground truth magnitudes side
     by side (low frequencies at the bottom, each scaled to its own range,
@@ -49,7 +69,7 @@ def unet_panels_viz(input_mag, pred_mag, target_mag, path: str) -> str:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     mags = [np.asarray(m, np.float32) for m in (input_mag, pred_mag, target_mag)]
     gap = np.full((mags[0].shape[0], 4, 3), 255, np.uint8)
-    panels = [_colormap_inferno(_minmax01(m))[::-1] for m in mags]
+    panels = [_inferno_image(m) for m in mags]
     _write_png(path, np.concatenate([panels[0], gap, panels[1], gap, panels[2]],
                                     axis=1))
     _panels_pdf(mags, os.path.splitext(path)[0] + ".pdf")
@@ -106,7 +126,7 @@ def _spectrogram_rgb(audio: np.ndarray, nfft: int, noverlap: int) -> np.ndarray:
     frames = audio[np.minimum(idx, len(audio) - 1)] * win
     spec = np.abs(np.fft.rfft(frames, axis=-1)) ** 2
     logspec = 10.0 * np.log10(np.maximum(spec.T, 1e-12))
-    return _colormap_inferno(_minmax01(logspec))[::-1]
+    return _inferno_image(logspec)
 
 
 def _write_png(path: str, rgb: np.ndarray) -> str:

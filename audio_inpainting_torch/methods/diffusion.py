@@ -39,7 +39,7 @@ from ..corrupt import mask_to_bad_columns
 from ..device import host_to_device, resolve_device, seeded_generator
 from ..models.diffusion_unet import DiffusionUNet
 from ..ops.griffin_lim import griffin_lim
-from ..ops.stft import stft, torch_stft_config
+from ..ops.stft import power_spectrogram
 from ..utils.checkpoint import load_params, save_params
 from .neural import _adam
 
@@ -54,7 +54,7 @@ PRIOR_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
 def wav_to_logspec(x: torch.Tensor) -> torch.Tensor:
     """(n,) waveform -> log-dB spectrogram (1025, frames), on x's device;
     reference :22-27."""
-    s = stft(x.to(torch.float32), torch_stft_config(2048, 512)).abs() ** 2
+    s = power_spectrogram(x, 2048, 512)
     ls = 20.0 * torch.log10(s.clamp_min(1e-5)) - 20.0
     return ls.clamp_min(-100.0)
 
@@ -279,7 +279,8 @@ def ddim_repaint(model: DiffusionUNet, img: torch.Tensor, keep: torch.Tensor,
 
 def train_spectrogram_ddpm(images_u8, cfg: DiffusionConfig = DiffusionConfig(),
                            key: int = 0, checkpoint_dir: str | None = None,
-                           masks_u8=None, device=None) -> dict[str, torch.Tensor]:
+                           masks_u8=None, device=None,
+                           losses: list | None = None) -> dict[str, torch.Tensor]:
     """Pretrain the spectrogram DDPM on a corpus of log-spec images.
 
     images_u8: (H, W) uint8 spectrogram images, each at least cfg.patch in
@@ -287,13 +288,15 @@ def train_spectrogram_ddpm(images_u8, cfg: DiffusionConfig = DiffusionConfig(),
     STEPS_PER_IMAGE steps. masks_u8 (optional, one per image, 255 =
     damaged) keeps damaged pixels out of the loss. Returns the trained
     state dict, on ``device`` (cuda by default), and writes it with
-    ``save_params`` when ``checkpoint_dir`` is given.
+    ``save_params`` when ``checkpoint_dir`` is given. ``losses``, where
+    given, receives each image's per-step losses (device tensors) as the
+    steps are queued.
     """
     dev = resolve_device(device)
     model = new_model(_draw_init(key, "corpus", cfg.base_channels),
                       cfg.base_channels, dev)
     opt = _adam_for(model, cfg)
-    imgs = [torch.tensor(np.asarray(im), dtype=torch.float32, device=dev) / 127.5 - 1.0
+    imgs = [torch.tensor(np.ascontiguousarray(im), dtype=torch.float32, device=dev) / 127.5 - 1.0
             for im in images_u8]
     keeps = ([torch.ones_like(im) for im in imgs] if masks_u8 is None else
              [torch.tensor(np.asarray(m) == 0, dtype=torch.float32, device=dev)
@@ -301,8 +304,10 @@ def train_spectrogram_ddpm(images_u8, cfg: DiffusionConfig = DiffusionConfig(),
     done = i = 0
     while done < cfg.train_steps:
         n = min(STEPS_PER_IMAGE, cfg.train_steps - done)
-        train_steps(model, opt, imgs[i % len(imgs)], keeps[i % len(imgs)], cfg, key,
-                    "corpus", range(done, done + n))
+        run = train_steps(model, opt, imgs[i % len(imgs)], keeps[i % len(imgs)], cfg, key,
+                          "corpus", range(done, done + n))
+        if losses is not None:
+            losses.append(run)
         done += n
         i += 1
     state = model.state_dict()

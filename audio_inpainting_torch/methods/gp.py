@@ -107,15 +107,25 @@ def _noise_diag(theta: torch.Tensor, jitter: float) -> torch.Tensor:
     return p[..., 4] + jitter * (1.0 + p[..., 0])
 
 
+def _kernel_matrix(theta: torch.Tensor, x: torch.Tensor, jitter: float) -> torch.Tensor:
+    """The training points' kernel matrices (R, n, n) with the white term
+    and the jitter on the diagonal, for theta (R, 5)."""
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    return _kernel(theta, x, x) + _noise_diag(theta, jitter)[:, None, None] * eye
+
+
 def _neg_mll(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
              jitter: float) -> torch.Tensor:
     """Negative log marginal likelihood of each row of theta (R, 5) -> (R,);
     NaN where the kernel matrix is not positive definite in float32."""
-    n = x.shape[0]
-    eye = torch.eye(n, dtype=x.dtype, device=x.device)
-    k = _kernel(theta, x, x) + _noise_diag(theta, jitter)[:, None, None] * eye
+    return _neg_mll_of(_kernel_matrix(theta, x, jitter), y)
+
+
+def _neg_mll_of(k: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``_neg_mll`` from the kernel matrices k (R, n, n)."""
+    n = k.shape[-1]
     chol, info = torch.linalg.cholesky_ex(k)
-    alpha = torch.cholesky_solve(y[:, None].expand(theta.shape[0], n, 1), chol)[..., 0]
+    alpha = torch.cholesky_solve(y[:, None].expand(k.shape[0], n, 1), chol)[..., 0]
     logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
     val = 0.5 * (alpha @ y) + 0.5 * logdet + 0.5 * n * math.log(2.0 * math.pi)
     return torch.where(info == 0, val, torch.nan)
@@ -348,12 +358,38 @@ def _restarts(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int):
     return u0, loss, lambda u: _to_theta(u, lo, hi)
 
 
+def fit_rows(u0: torch.Tensor, loss, rows, cfg: GPConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """L-BFGS of the restarts ``rows`` of ``u0`` (indices, repeats
+    allowed) at u0's whole shape: each restart at its own row, every other
+    row at the initial values u0[0]. Returns their final points
+    (len(rows), 5) and losses (len(rows),), NaN and -inf as +inf.
+
+    On the card the kernel's backward sums each (n, n) row of its
+    gradient onto theta in an order set by the batch's row count and the
+    row's place in it, so a restart fitted in a smaller batch, or at
+    another row, follows another trajectory (ROADMAP Queue 3, F3). At
+    one shape and its own place, a restart's values and gradients are
+    the same bits whatever the other rows hold, so a split of the
+    restarts gives the winner of one batch."""
+    idx = torch.as_tensor(rows, device=u0.device)
+    u = lbfgs_minimize(loss, restart_layout(u0, idx), cfg.opt_steps, cfg.max_linesearch_steps)
+    return u[idx], finite_or_inf(loss(u))[idx]
+
+
+def restart_layout(u0: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """u0's shape holding u0's rows ``idx`` at their places and u0[0]
+    in every other row."""
+    start = u0[:1].repeat(len(u0), 1)
+    start[idx] = u0[idx]
+    return start
+
+
 def _fit(x: torch.Tensor, y: torch.Tensor, cfg: GPConfig, seed: int) -> torch.Tensor:
     """Maximize the marginal likelihood from the initial values and
     ``n_restarts`` random starts at once; return the best log-theta (5,)."""
     u0, loss, to_theta = _restarts(x, y, cfg, seed)
-    u = lbfgs_minimize(loss, u0, cfg.opt_steps, cfg.max_linesearch_steps)
-    return to_theta(u[torch.argmin(finite_or_inf(loss(u)))])
+    u, losses = fit_rows(u0, loss, range(len(u0)), cfg)
+    return to_theta(u[torch.argmin(losses)])
 
 
 def finite_or_inf(losses: torch.Tensor) -> torch.Tensor:

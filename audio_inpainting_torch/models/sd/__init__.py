@@ -17,7 +17,7 @@ from .scheduler import (SchedulerConfig, add_noise, alphas_cumprod,
                         ddim_step, ddim_timesteps, plms_init, plms_step,
                         plms_timesteps)
 from .unet2d import UNet2DCondition, UNetConfig
-from .vae import AutoencoderKL, VAEConfig
+from .vae import AutoencoderKL, VAEConfig, sample_latent
 
 __all__ = [
     "AutoencoderKL", "InpaintConfig", "PROMPT", "SchedulerConfig",

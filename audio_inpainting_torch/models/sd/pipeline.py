@@ -29,7 +29,7 @@ from ...device import host_to_device, seeded_generator
 from .scheduler import (SchedulerConfig, add_noise, alphas_cumprod, plms_init,
                         plms_step, plms_timesteps)
 from .unet2d import UNet2DCondition, UNetConfig
-from .vae import AutoencoderKL, VAEConfig
+from .vae import AutoencoderKL, VAEConfig, sample_latent
 
 PROMPT = "high quality audio, ambient sound, seamless transition"
 
@@ -73,7 +73,7 @@ def _encode_image(vae: AutoencoderKL, img: torch.Tensor, seed: int,
     """[-1, 1] NCHW image -> scaled latents (sampled posterior)."""
     mean, logvar = vae.encode(img)
     eps = host_to_device(_draw_posterior(seed, tuple(mean.shape)), img.device)
-    return (mean + torch.exp(0.5 * logvar) * eps) * cfg.vae.scaling_factor
+    return sample_latent(mean, logvar, eps) * cfg.vae.scaling_factor
 
 
 @torch.no_grad()

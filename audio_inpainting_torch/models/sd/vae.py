@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -180,3 +181,10 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))
+
+
+def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """A sample of the posterior N(mean, exp(logvar)): mean + std * noise,
+    with the standard-normal ``noise`` passed in (the JAX version draws it
+    from a key)."""
+    return mean + torch.exp(0.5 * logvar) * noise

@@ -1,5 +1,6 @@
 from .stft import (StftConfig, scipy_stft_config, torch_stft_config, stft,
-                   istft, magphase, polar, hann_window)
+                   istft, frame_signal, power_spectrogram, magphase, polar,
+                   hann_window)
 from .ar_scan import ar_extrapolate, ar_extrapolate_ref
 
 __all__ = [
@@ -8,6 +9,8 @@ __all__ = [
     "torch_stft_config",
     "stft",
     "istft",
+    "frame_signal",
+    "power_spectrogram",
     "magphase",
     "polar",
     "hann_window",

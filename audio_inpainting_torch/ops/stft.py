@@ -110,6 +110,25 @@ def stft(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return z * cfg.scale
 
 
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """Strided framing -> (n_frames, frame_len), a view of x: frame i is
+    x[i * hop : i * hop + frame_len]. ValueError where x is shorter than
+    one frame."""
+    if x.shape[0] < frame_len:
+        raise ValueError(
+            f"signal of {x.shape[0]} samples is shorter than one "
+            f"{frame_len}-sample frame; pad it (see StftConfig.pad_mode)")
+    return x.unfold(0, frame_len, hop)
+
+
+def power_spectrogram(x: torch.Tensor, n_fft: int, hop: int,
+                      power: float = 2.0) -> torch.Tensor:
+    """torchaudio.transforms.Spectrogram's |STFT|^power (centre reflect
+    pad, periodic Hann, no scaling), (n_bins, n_frames) on x's device: the
+    diffusion codec's spectrogram (reference main_diffusion_gap.py:22-27)."""
+    return stft(x, torch_stft_config(n_fft, hop)).abs() ** power
+
+
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add of (n_frames, frame_len) frames at stride ``hop``."""
     n_frames, frame_len = frames.shape

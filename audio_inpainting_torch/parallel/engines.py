@@ -11,12 +11,11 @@ The port of audio_inpainting_tpu/parallel/engines.py.
   once at the whole batch's per-window shape and every rank passes that
   draw on (``eps``): a fill does not depend on the world size.
 - ``gp_fit_predict_mesh``: the GP's L-BFGS restarts split over ranks
-  (methods/gp.py's batched L-BFGS on each rank's batch); the final
-  losses are gathered, the winner's hyperparameters broadcast from its
-  rank, and the posterior solved once on every rank. Every restart's
-  trajectory is its own, so on the CPU the winner is the one-rank
-  winner; on the card the gradients move with the batch (ROADMAP
-  Queue 3, F3), and ``batches`` lets one rank run the ranks' batches.
+  (methods/gp.py's batched L-BFGS, ``fit_rows``: each rank's restarts
+  at the whole batch's shape and at their own rows, so each follows its
+  one-rank trajectory bit for bit, on the card too); the final losses
+  are gathered, the winner's hyperparameters broadcast from its rank,
+  and the posterior solved once on every rank: the one-rank winner.
 """
 
 from __future__ import annotations
@@ -57,8 +56,9 @@ def gp_fit_predict_mesh(x_train, y_train, x_test, cfg: gp.GPConfig, ranks: Ranks
     to a multiple of ``batches`` with copies of the initial values (as
     the JAX package pads them), which can move the winner's index, never
     its hyperparameters. batches: the restart batches, each one L-BFGS
-    run, a multiple of the world size (default: one a rank); rank r runs
-    its equal consecutive share of them. ``Ranks.solo`` with ``batches``
+    run at the whole restart list's shape (``gp.fit_rows``), a multiple
+    of the world size (default: one a rank); rank r runs its equal
+    consecutive share of them. ``Ranks.solo`` with ``batches``
     = N is one rank running N ranks' batches. Returns (mu, std, theta)
     on every rank, on its device."""
     n_b = batches or ranks.world
@@ -68,11 +68,11 @@ def gp_fit_predict_mesh(x_train, y_train, x_test, cfg: gp.GPConfig, ranks: Ranks
     def fit(x, y):
         u0, loss, to_theta = gp._restarts(x, y, cfg, seed)
         per = n_b // ranks.world
-        us = [gp.lbfgs_minimize(loss, u0[rows], cfg.opt_steps, cfg.max_linesearch_steps)
-              for rows in split_rows(len(u0), n_b, fill=0)[ranks.rank * per:
-                                                             (ranks.rank + 1) * per]]
-        u = torch.cat(us)
-        mine = torch.cat([gp.finite_or_inf(loss(b)) for b in us]).cpu()
+        fits = [gp.fit_rows(u0, loss, rows, cfg)
+                for rows in split_rows(len(u0), n_b, fill=0)[ranks.rank * per:
+                                                              (ranks.rank + 1) * per]]
+        u = torch.cat([f[0] for f in fits])
+        mine = torch.cat([f[1] for f in fits]).cpu()
         best = int(torch.argmin(torch.cat(gather_objects(mine, ranks))))
         owner, row = divmod(best, len(u))
         return to_theta(broadcast(u[row].contiguous() if owner == ranks.rank

@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from ..device import as_f32
-from ..ops.stft import StftConfig, _check_pad_mode, _pad_reflect_repeated, _pad_zeros, hann_window
+from ..ops.stft import (StftConfig, _check_pad_mode, _pad_reflect_repeated, _pad_zeros,
+                        frame_signal, hann_window)
 from .mesh import Ranks, gather, rank_rows, shard_batch
 from .train import init_shared_unet, nchw, shared_unet_train_step
 
@@ -87,7 +88,7 @@ def stft_frame_parallel(x, cfg: StftConfig, ranks: Ranks):
     x = as_f32(x, ranks.device)
     xp = (_pad_reflect_repeated(x, cfg.n_fft // 2) if cfg.pad_mode == "reflect"
           else _pad_zeros(x, cfg))
-    frames = xp.unfold(0, cfg.n_fft, cfg.hop)           # (n_frames, n_fft), a view
+    frames = frame_signal(xp, cfg.n_fft, cfg.hop)       # (n_frames, n_fft), a view
     n = frames.shape[0]
     mine = frames[torch.as_tensor(rank_rows(n, ranks), device=x.device)]
     z = torch.fft.rfft(mine * hann_window(cfg.n_fft, x.device), dim=-1) * cfg.scale

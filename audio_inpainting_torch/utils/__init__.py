@@ -1,3 +1,5 @@
-from .checkpoint import load_params, save_params
+from .checkpoint import latest_checkpoint, load_params, save_params
+from .profiling import Timer, device_trace
 
-__all__ = ["load_params", "save_params"]
+__all__ = ["save_params", "load_params", "latest_checkpoint",
+           "device_trace", "Timer"]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -45,3 +46,16 @@ def load_params(path: str, device=None) -> dict[str, torch.Tensor]:
     dev = resolve_device(device)
     with np.load(os.path.join(path, PARAMS_FILE), allow_pickle=False) as z:
         return {k: torch.tensor(z[k], device=dev) for k in z.files}
+
+
+def latest_checkpoint(directory: str, prefix: str = "step_") -> str | None:
+    """The highest-numbered ``<prefix>N`` entry of ``directory``, joined to
+    it, or None where there is none (or no directory)."""
+    if not os.path.isdir(directory):
+        return None
+    best, best_n = None, -1
+    for name in os.listdir(directory):
+        m = re.fullmatch(re.escape(prefix) + r"(\d+)", name)
+        if m and int(m.group(1)) > best_n:
+            best, best_n = os.path.join(directory, name), int(m.group(1))
+    return best

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py multi      # phase multi alone, no result lines
+    python3 chip_smoke.py prior      # phase prior alone, no result lines
 
 It builds the port's CUDA kernel from csrc/, holds it against its plain
 torch version at the shapes the restore path gives it, times both, then
@@ -150,6 +151,12 @@ SD_FORWARD_RTOL = 1e-4         # GPU vs CPU, of the output's peak
 SD_LATENT_RTOL = 1e-4          # the tiny inpaint's latents, of their peak
 SD_VS_CPU_CANVAS = 256         # the VAE's GPU-vs-CPU size
 SD_PROFILE_STEPS = 10          # the profiled loop: 11 evaluations
+# phase prior (the corpus-prior trainer)
+PRIOR_CLIPS = 4                # 6 full-size images with the corrupted variants
+PRIOR_STEPS = 500
+PRIOR_LOSS_WINDOW = 100        # the last steps' mean loss below the first's
+PRIOR_VS_CPU_STEPS = 3
+PRIOR_TRACE_STEPS = 10
 # phase multi (the multi-device layer)
 MULTI_SHAPE = (4, 516, 1728)   # mode 1: the shared U-Net's batch
 MULTI_STEPS = 3
@@ -158,15 +165,18 @@ MULTI_GAN_EPOCHS = 20
 MULTI_SPATIAL_STEPS = 2        # mode 3 on two 60 s spectrograms
 RANKS_ATOL = 1e-5              # ranks against one rank (of peak for outputs)
 GP_RANKS_ATOL = 5e-5
-# F3's readings at two ranks on the H100 (theta 129 % and the posterior
-# 9.4e-3 from one rank's, the same in every run): a drift beyond them fails
-GP_F3_THETA_REL = 1.2912
-GP_F3_POSTERIOR_ERR = 9.42e-3
+GP_THETA_RTOL = 1e-4           # the ranks' winner against one rank's
 STFT_RTOL_OF_PEAK = 1e-4
 MULTI_DEVICE = "cuda:0"        # the card the gloo ranks share
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -586,6 +596,96 @@ def phase_diffusion(dev):
                                          "load_s": load_s},
           "gpu_vs_cpu": vs_cpu, "griffin_lim": gl,
           "full_size": {"forward": forward, "ddim": ddim, "train_step": train}})
+
+
+def phase_prior(dev, tmp: Path) -> int:
+    """The corpus-prior trainer's path (audio_inpainting_torch/tools/
+    train_diffusion_prior.py): ``build_corpus`` of PRIOR_CLIPS full-size
+    clips, PRIOR_STEPS steps of ``train_spectrogram_ddpm`` at full width
+    (finite losses, the last PRIOR_LOSS_WINDOW steps' mean below the
+    first's), PRIOR_VS_CPU_STEPS steps GPU against CPU on the same draws
+    (phase diffusion's bounds), ``save_params`` -> ``latest_checkpoint`` ->
+    ``load_params`` bit-equal, and a ``device_trace`` of PRIOR_TRACE_STEPS
+    steps that must write a trace holding kernels. Returns the CUDA
+    kernel's launches on the path (none: the trainer has no hand kernel)."""
+    from audio_inpainting_torch.methods import diffusion as diff
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.tools.train_diffusion_prior import build_corpus, loss_curve
+    from audio_inpainting_torch.utils import (Timer, device_trace, latest_checkpoint,
+                                              load_params, save_params)
+
+    ar_scan.LAUNCHES = 0
+    timer = Timer()
+    images, masks = build_corpus(PRIOR_CLIPS, SR, dev)
+    corpus_s = timer.lap("corpus")
+    cfg = diff.DiffusionConfig(train_steps=PRIOR_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    timer.lap("setup")
+    state = diff.train_spectrogram_ddpm(images, cfg, key=0, masks_u8=masks, device=dev,
+                                        losses=runs)
+    train_s = timer.lap("train", runs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = ar_scan.LAUNCHES
+    losses = torch.cat(runs).cpu()
+    first = float(losses[:PRIOR_LOSS_WINDOW].mean())
+    last = float(losses[-PRIOR_LOSS_WINDOW:].mean())
+    if not (bool(torch.isfinite(losses).all()) and last < first):
+        raise AssertionError(f"prior: losses not finite or not falling ({first} -> {last})")
+
+    # the same draws on the CPU
+    small = diff.DiffusionConfig(train_steps=PRIOR_VS_CPU_STEPS)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        runs_d = []
+        st = diff.train_spectrogram_ddpm(images, small, key=0, masks_u8=masks, device=d,
+                                         losses=runs_d)
+        got.append((torch.cat(runs_d).cpu(), {k: v.cpu() for k, v in st.items()}))
+    (g_loss, g_state), (c_loss, c_state) = got
+    vs_cpu = {"steps": PRIOR_VS_CPU_STEPS, "loss_rel_err": rel_err(g_loss, c_loss),
+              "param_max_abs_err": max(float((v - c_state[k]).abs().max())
+                                       for k, v in g_state.items()),
+              "tolerance": f"losses within {DIFF_LOSS_RTOL:g} relative, parameters "
+                           f"within {DIFF_PARAM_ATOL:g}"}
+    if not (vs_cpu["loss_rel_err"] <= DIFF_LOSS_RTOL
+            and vs_cpu["param_max_abs_err"] <= DIFF_PARAM_ATOL):
+        raise AssertionError(f"prior GPU vs CPU: {vs_cpu}")
+
+    # the checkpoint round trip through the newest step's directory
+    root = tmp / "prior_checkpoints"
+    save_params(g_state, str(root / f"step_{PRIOR_VS_CPU_STEPS}"))
+    saved = save_params(state, str(root / f"step_{PRIOR_STEPS}"))
+    found = latest_checkpoint(str(root))
+    back = load_params(found, dev)
+    if found != saved or back.keys() != state.keys() or not all(
+            torch.equal(back[k], v) for k, v in state.items()):
+        raise AssertionError(f"prior: {found} did not give back the {saved} state")
+
+    # a trace of a few steps
+    trace_dir = tmp / "prior_trace"
+    with device_trace(str(trace_dir)):
+        diff.train_spectrogram_ddpm(images, diff.DiffusionConfig(train_steps=PRIOR_TRACE_STEPS),
+                                    key=0, masks_u8=masks, device=dev)
+        torch.cuda.synchronize()
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    kernels = sum(1 for f in traces for e in json.loads(f.read_text()).get("traceEvents", [])
+                  if e.get("cat") == "kernel")
+    if not traces or not kernels:
+        raise AssertionError(f"prior: device_trace wrote {traces} with {kernels} kernels")
+    emit({"phase": "prior", "gpu": gpu_name_and_power(), "clips": PRIOR_CLIPS,
+          "images": [len(images), list(images[0].shape)], "corpus_s": corpus_s,
+          "steps": PRIOR_STEPS, "batch": cfg.batch, "patch": cfg.patch,
+          "base_channels": cfg.base_channels, "train_s": train_s,
+          "ms_per_step": 1e3 * train_s / PRIOR_STEPS, "peak_memory_gb": peak_gb,
+          "loss_first_mean": first, "loss_last_mean": last,
+          "loss_curve_per_100": loss_curve(losses, PRIOR_LOSS_WINDOW),
+          "gpu_vs_cpu": vs_cpu, "checkpoint": {"latest": Path(found).name, "bit_equal": True},
+          "trace": {"files": [f.name for f in traces], "bytes": sum(f.stat().st_size
+                                                                     for f in traces),
+                    "kernels": kernels, "steps": PRIOR_TRACE_STEPS},
+          "launches": launches})
+    return launches
 
 
 def seeded_sd_state(model, gen: torch.Generator) -> dict[str, torch.Tensor]:
@@ -2346,18 +2446,66 @@ def multi_windows(ranks, lead: bool, damaged, touched) -> dict:
     return res
 
 
+def gp_batch_probe(x, y, cfg, world: int) -> dict:
+    """Where a GP restart's gradient moves with its batch on the card
+    (ROADMAP Queue 3, F3), at the rows of each of ``world`` ranks, each
+    reading the largest difference from the same rows of the whole batch
+    over the whole batch's largest: the values and gradients in a batch
+    of the rows alone (``sub_batch_*``) and as ``gp.fit_rows`` evaluates
+    them, at the whole batch's shape and their own places
+    (``grad_batch_rel``, ``value_batch_rel``); and, fed the whole batch's
+    upstream gradients, each stage's backward in a batch of the rows
+    alone: the Cholesky factorization, its solve and log-determinant
+    (onto the kernel matrices), and the kernel's (onto theta)."""
+    from audio_inpainting_torch.methods import gp
+    from audio_inpainting_torch.parallel.mesh import split_rows
+
+    u0, loss, to_theta = gp._restarts(x, y, cfg, 0)
+    v_all, g_all = gp._value_and_grad(loss, u0)
+
+    def stages(u, d_k=None):
+        """(dL/dK, dL/dtheta) of the rows u, the latter fed d_k."""
+        with torch.enable_grad():
+            theta = to_theta(u).detach().requires_grad_(True)
+            k = gp._kernel_matrix(theta, x, cfg.jitter)
+            kk = k.detach().requires_grad_(True)
+            (dk,) = torch.autograd.grad(gp._neg_mll_of(kk, y).sum(), kk)
+            (dth,) = torch.autograd.grad(k, theta, grad_outputs=dk if d_k is None else d_k)
+        return dk, dth
+
+    dk_all, dth_all = stages(u0)
+    res = {k: 0.0 for k in ("sub_batch_value_rel", "sub_batch_grad_rel", "value_batch_rel",
+                            "grad_batch_rel", "cholesky_backward_rel",
+                            "kernel_backward_rel")}
+
+    def worst(key, got, want, scale):
+        res[key] = max(res[key], float((got - want).abs().max() / scale.abs().max()))
+
+    for rows in split_rows(len(u0), world, fill=0):
+        idx = torch.as_tensor(rows, device=x.device)
+        v, g = gp._value_and_grad(loss, u0[idx])
+        worst("sub_batch_value_rel", v, v_all[idx], v_all)
+        worst("sub_batch_grad_rel", g, g_all[idx], g_all)
+        v, g = gp._value_and_grad(loss, gp.restart_layout(u0, idx))
+        worst("value_batch_rel", v[idx], v_all[idx], v_all)
+        worst("grad_batch_rel", g[idx], g_all[idx], g_all)
+        dk, dth = stages(u0[idx], dk_all[idx])
+        worst("cholesky_backward_rel", dk, dk_all[idx], dk_all)
+        worst("kernel_backward_rel", dth, dth_all[idx], dth_all)
+    return res
+
+
 def multi_gp(ranks, lead: bool, clean) -> dict:
     """Mode 7 on Part 0's segment (facade_gp's): the restarts over the
-    ranks, against one rank running the ranks' batches (5e-5) and one
-    rank's gp_fit_predict: the fill within GP_MARGIN_DB, and the winner's
-    theta and the posterior no further from one rank's than F3 put them
-    (ROADMAP Queue 3: on the card the winner moves with the restart
-    batch)."""
+    ranks, against one rank running the ranks' batches and one rank's
+    gp_fit_predict (the posterior within GP_RANKS_ATOL, the winner's theta
+    within GP_THETA_RTOL), with gp_batch_probe's readings: a restart's
+    value and gradient as the ranks evaluate them must be the bits of
+    the whole batch's (F3, ROADMAP Queue 3)."""
     from audio_inpainting_torch.corrupt import contiguous_gap_mask
     from audio_inpainting_torch.methods import gp
     from audio_inpainting_torch.metrics import local_snr_db
     from audio_inpainting_torch.parallel import Ranks, gp_fit_predict_mesh
-    from audio_inpainting_torch.parallel.mesh import split_rows
 
     n = int(0.05 * SR)
     seg = clean[len(clean) // 2:len(clean) // 2 + n]
@@ -2370,13 +2518,7 @@ def multi_gp(ranks, lead: bool, clean) -> dict:
     res = {"wall_s": wall, "restarts": gp.GPConfig().n_restarts + 1}
     if lead:
         def one_rank_fit(x, y):     # gp_fit_predict's fit
-            # the likelihood's gradient at the first rank's starts, in its
-            # batch against in the whole one (F3)
-            u0, loss, _ = gp._restarts(x, y, args[3], 0)
-            first = split_rows(len(u0), ranks.world, fill=0)[0]
-            g_all, g_part = (gp._value_and_grad(loss, u)[1][:len(first)]
-                             for u in (u0, u0[first]))
-            res["grad_batch_rel"] = float((g_all - g_part).abs().max() / g_all.abs().max())
+            res.update(gp_batch_probe(x, y, args[3], ranks.world))
             return gp._fit(x, y, args[3], 0)
 
         mu_s, sd_s, _ = gp_fit_predict_mesh(*args, Ranks.solo(ranks.device), 0,
@@ -2391,10 +2533,11 @@ def multi_gp(ranks, lead: bool, clean) -> dict:
                    local_snr_db=float(local_snr_db(seg, fill, gs, ge, ranks.device)),
                    one_rank_local_snr_db=float(local_snr_db(seg, fill_1, gs, ge,
                                                             ranks.device)))
-        if not (res["vs_ranks_batches_err"] <= GP_RANKS_ATOL
-                and res["local_snr_db"] >= res["one_rank_local_snr_db"] - GP_MARGIN_DB
-                and res["theta_vs_one_rank_rel"] <= GP_F3_THETA_REL
-                and res["vs_one_rank_err"] <= GP_F3_POSTERIOR_ERR):
+        if not (res["grad_batch_rel"] == 0.0 and res["value_batch_rel"] == 0.0
+                and res["vs_ranks_batches_err"] <= GP_RANKS_ATOL
+                and res["vs_one_rank_err"] <= GP_RANKS_ATOL
+                and res["theta_vs_one_rank_rel"] <= GP_THETA_RTOL
+                and res["local_snr_db"] >= res["one_rank_local_snr_db"] - GP_MARGIN_DB):
             raise AssertionError(f"multi gp at {ranks.world} ranks: {res}")
     return res
 
@@ -2628,9 +2771,12 @@ def main(argv: list[str]) -> int:
         return 1
     dev = torch.device("cuda")
     phase_env(dev)
-    if argv == ["multi"]:           # phase multi alone, for work on that layer
+    if argv in (["multi"], ["prior"]):      # one phase alone, for work on it
         with tempfile.TemporaryDirectory() as tmp:
-            phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
+            if argv == ["multi"]:
+                phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
+            else:
+                phase_prior(dev, Path(tmp))
         print(gpu_name_and_power(), flush=True)
         return 0
     rows = phase_kernel(dev)
@@ -2638,10 +2784,11 @@ def main(argv: list[str]) -> int:
     phase_neural(dev)
     phase_diffusion(dev)
     with tempfile.TemporaryDirectory() as tmp:
+        prior_launches = phase_prior(dev, Path(tmp))
         launches = phase_facade(dev, Path(tmp))
         part1_launches, part1_row = phase_part1(dev, Path(tmp))
         by_path = {"facade": launches, "part1": part1_launches,
-                   **phase_pipelines(dev, Path(tmp))}
+                   **phase_pipelines(dev, Path(tmp)), "prior": prior_launches}
         clip = engine_clip(Path(tmp))
         windowed_launches, windowed_rows = phase_windowed(dev, clip)
         by_path.update(windowed_launches)

@@ -178,3 +178,23 @@ def test_predict_raises_the_jitter_where_float32_fails():
     assert torch.linalg.cholesky_ex(k)[1] != 0
     mu, std = tgp._predict(theta, t[mask], y, t[~mask], cfg)
     assert torch.isfinite(mu).all() and torch.isfinite(std).all()
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_fit_rows_split_gives_the_one_batch_fit(parts):
+    """The restarts split into ``parts`` batches (padded with the initial
+    values, as gp_fit_predict_mesh pads them), each fitted by fit_rows at
+    the whole batch's shape and its own rows: every restart's final point
+    and loss are the bits of the one-batch fit. (In a batch of its rows
+    alone a restart's likelihood may round otherwise, and its trajectory
+    part from the one-batch one: ROADMAP Queue 3, F3.)"""
+    from audio_inpainting_torch.parallel.mesh import split_rows
+
+    cfg = tgp.GPConfig(opt_steps=8)
+    x, y = (torch.tensor(a) for a in _noisy_sine(200, 3))
+    y = (y - y.mean()) / y.std(correction=0)
+    u0, loss, _ = tgp._restarts(x, y, cfg, 0)
+    u_all, l_all = tgp.fit_rows(u0, loss, range(len(u0)), cfg)
+    for rows in split_rows(len(u0), parts, fill=0):
+        u, losses = tgp.fit_rows(u0, loss, rows, cfg)
+        assert torch.equal(u, u_all[rows]) and torch.equal(losses, l_all[rows])

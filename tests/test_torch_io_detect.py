@@ -121,3 +121,33 @@ def test_deterministic_masks_equal():
     assert tg == jg
     assert (tcorrupt.center_gap_bounds(441000, 44100)
             == jcorrupt.center_gap_bounds(441000, 44100))
+
+
+def _png_rgb(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB")).astype(np.int64)
+
+
+@pytest.mark.parametrize("origin", ["lower", "upper"])
+def test_save_image_png_orientation_and_colormap_match_jax(tmp_path, origin):
+    """The port draws the array's own pixels by its stdlib writer where the
+    JAX package draws a matplotlib figure: not pixel-equal, but the same
+    orientation and colormap. Each port row, sampled at its place in the
+    JAX figure, has JAX's colour within 24 levels (the port's inferno is
+    an 8-anchor blend of matplotlib's, 23 levels off at most)."""
+    from audio_inpainting_tpu.io.render import save_image_png as jsave
+    from audio_inpainting_torch.io.render import _colormap_inferno, save_image_png
+
+    rows, cols = 24, 16
+    a = np.repeat(np.arange(rows, dtype=np.float32)[:, None], cols, axis=1) ** 1.5
+    got = _png_rgb(save_image_png(a, str(tmp_path / "port.png"), origin=origin))
+    want = _png_rgb(jsave(a, str(tmp_path / "jax.png"), origin=origin))
+    assert got.shape == (rows, cols, 3)
+    ramp = _colormap_inferno((a[:, 0] - a.min()) / (a.max() - a.min())).astype(np.int64)
+    np.testing.assert_array_equal(got[:, 0], ramp[::-1] if origin == "lower" else ramp)
+    h, w, _ = want.shape
+    centres = ((np.arange(rows) + 0.5) * h / rows).astype(int)
+    assert np.abs(got[:, cols // 2] - want[centres, w // 2]).max() <= 24
+    with pytest.raises(ValueError):
+        save_image_png(a, str(tmp_path / "viridis.png"), cmap="viridis")

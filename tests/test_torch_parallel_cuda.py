@@ -12,7 +12,10 @@ one.
 - on two cards or more, two ranks on NCCL, one a card: the collectives,
   the dry run, and run_serve(devices=2) writing the bytes of devices=1;
 - the AR windows over two ranks launch the CUDA kernel on every rank,
-  once a pass, and give the one-rank result within 1e-5.
+  once a pass, and give the one-rank result within 1e-5;
+- the GP's restarts (ROADMAP Queue 3, F3): each restart's likelihood and
+  gradient at the whole batch's shape and its own row are the bits of
+  the whole batch's, and two ranks pick the one-rank winner.
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so this
 file imports no JAX and runs there without the conftest:
@@ -25,9 +28,12 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from audio_inpainting_torch.corrupt import contiguous_gap_mask, synth_music_clip
+from audio_inpainting_torch.methods import gp
 from audio_inpainting_torch.methods.ar import ARConfig, ar_restore_gaps_windows
 from audio_inpainting_torch.ops import ar_scan
-from audio_inpainting_torch.parallel import Ranks, ar_restore_windows_dp, fit_shared_unet, launch
+from audio_inpainting_torch.parallel import (Ranks, ar_restore_windows_dp, fit_shared_unet,
+                                             gp_fit_predict_mesh, launch)
 from audio_inpainting_torch.parallel import mesh
 from audio_inpainting_torch.parallel.dryrun import dryrun_multichip
 
@@ -38,6 +44,8 @@ from audio_inpainting_torch.parallel.dryrun import dryrun_multichip
 torch.set_num_threads(1)
 
 RANKS_ATOL = 1e-5
+GP_RANKS_ATOL = 5e-5    # the posterior, two ranks against one
+GP_THETA_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -161,6 +169,55 @@ def test_ar_windows_launch_the_kernel_on_every_rank(cuda):
     same = torch.cat([ar_restore_gaps_windows(wins[r], [gaps[i] for i in r], CFG, 2,
                                               device=cuda).cpu() for r in idx])[:len(gaps)]
     torch.testing.assert_close(out, same, atol=RANKS_ATOL, rtol=0)
+
+
+def _part0_segment():
+    """Part 0's GP problem: the 0.05 s mid-clip segment of
+    synth_music_clip(0) at 44.1 kHz with a 20 % gap; (x, y, x_star)."""
+    sr = 44100
+    clean = synth_music_clip(0, sr, 10.0)
+    n = int(0.05 * sr)
+    seg = clean[len(clean) // 2:len(clean) // 2 + n]
+    _, (gs, ge) = contiguous_gap_mask(n, 0.2)
+    keep = np.ones(n, bool)
+    keep[gs:ge] = False
+    t = np.arange(n, dtype=np.float32) / sr
+    return t[keep], seg[keep], t[~keep]
+
+
+def _gp_rank(ranks: Ranks):
+    mu, sd, theta = gp_fit_predict_mesh(*_part0_segment(), gp.GPConfig(), ranks, 0)
+    return mu.cpu(), sd.cpu(), theta.cpu()
+
+
+@pytest.mark.requires_cuda
+def test_gp_restart_rows_do_not_depend_on_their_batch(cuda):
+    """At the default GPConfig's fit points, every rank's restarts for 2,
+    3 and 4 ranks, evaluated as gp.fit_rows evaluates them: their values
+    and gradients are the bits of the same rows of the whole batch."""
+    x, y, _ = (torch.as_tensor(a, device=cuda) for a in _part0_segment())
+    k = gp.GPConfig().fit_subsample
+    x, y = x[::k], ((y - y.mean()) / y.std(correction=0))[::k]
+    u0, loss, _ = gp._restarts(x, y, gp.GPConfig(), 0)
+    v_all, g_all = gp._value_and_grad(loss, u0)
+    for parts in (2, 3, 4):
+        for rows in mesh.split_rows(len(u0), parts, fill=0):
+            idx = torch.as_tensor(rows, device=cuda)
+            v, g = gp._value_and_grad(loss, gp.restart_layout(u0, idx))
+            assert torch.equal(v[idx], v_all[idx]) and torch.equal(g[idx], g_all[idx]), rows
+
+
+@pytest.mark.requires_cuda
+def test_gp_two_ranks_pick_the_one_rank_winner(cuda):
+    """gp_fit_predict_mesh on two gloo ranks sharing the card against
+    gp_fit_predict on one: theta within 1e-4 relative, the posterior
+    within 5e-5."""
+    mu, sd, theta = launch(_gp_rank, 2, devices="cuda:0", backend="gloo")
+    mu1, sd1, theta1 = (a.cpu() for a in gp.gp_fit_predict(*_part0_segment(), gp.GPConfig(),
+                                                           0, device=cuda))
+    assert float(((theta - theta1) / theta1).abs().max()) <= GP_THETA_RTOL
+    torch.testing.assert_close(mu, mu1, atol=GP_RANKS_ATOL, rtol=0)
+    torch.testing.assert_close(sd, sd1, atol=GP_RANKS_ATOL, rtol=0)
 
 
 @pytest.fixture

@@ -26,11 +26,12 @@ from audio_inpainting_tpu.models.sd.unet2d import UNet2DCondition as JaxUNet
 from audio_inpainting_tpu.models.sd.unet2d import UNetConfig as JaxUNetConfig
 from audio_inpainting_tpu.models.sd.vae import AutoencoderKL as JaxVAE
 from audio_inpainting_tpu.models.sd.vae import VAEConfig as JaxVAEConfig
+from audio_inpainting_tpu.models.sd.vae import sample_latent as jax_sample_latent
 from audio_inpainting_torch.models.sd import (AutoencoderKL, UNet2DCondition, UNetConfig,
                                               VAEConfig, encode_prompt, flax_to_torch_key,
                                               load_module, load_riffusion, load_torch_weights,
                                               match_checkpoint, read_safetensors,
-                                              sd_flax_to_state_dict)
+                                              sample_latent, sd_flax_to_state_dict)
 from audio_inpainting_torch.models.sd import scheduler as tsched
 from audio_inpainting_torch.models.sd.unet2d import Attention, Transformer2D
 from audio_inpainting_torch.models.sd.vae import VAEAttention
@@ -441,3 +442,17 @@ def test_load_riffusion_text_leg_against_flax_clip(tmp_path, tiny_unet, tiny_vae
                                  load_text=True)
     want = jpipe.encode_prompt(jbundle["tokenizer"], jbundle["text_encoder"], "ambient sound")
     assert err_of_peak(ctx.numpy(), want) <= 1e-5
+
+
+def test_sample_latent_matches_jax():
+    """The posterior sample with JAX's normal draw of the key injected as
+    the noise: the same formula, within float32 rounding."""
+    rng = np.random.RandomState(5)
+    mean = rng.randn(1, 4, 8, 12).astype(np.float32)
+    logvar = np.clip(3.0 * rng.randn(1, 4, 8, 12), -30.0, 20.0).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jax_sample_latent(jnp.asarray(mean), jnp.asarray(logvar), key))
+    noise = np.asarray(jax.random.normal(key, mean.shape))
+    got = sample_latent(torch.as_tensor(mean), torch.as_tensor(logvar),
+                        torch.as_tensor(noise)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -95,3 +95,28 @@ def test_lsd_matches_jax():
     # of tiny powers, hence the looser 1e-2 dB
     assert abs(float(tmetrics.lsd_db(x, y, device="cpu"))
                - float(jmetrics.lsd_db(x, y))) <= 1e-2
+
+
+@pytest.mark.parametrize("frame_len,hop", [(1024, 256), (512, 384), (7, 3)])
+def test_frame_signal_matches_jax(frame_len, hop):
+    """A view of the signal, frame i at i * hop, as JAX's row-view and
+    gather paths frame it; shorter than a frame raises in both."""
+    x = _clip(5000, seed=1)
+    got = tstft.frame_signal(torch.as_tensor(x), frame_len, hop)
+    want = np.asarray(jstft.frame_signal(jnp.asarray(x), frame_len, hop))
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        tstft.frame_signal(torch.as_tensor(x[:frame_len - 1]), frame_len, hop)
+    with pytest.raises(ValueError):
+        jstft.frame_signal(jnp.asarray(x[:frame_len - 1]), frame_len, hop)
+
+
+@pytest.mark.parametrize("power", [2.0, 1.0])
+def test_power_spectrogram_matches_jax(power):
+    """torchaudio's Spectrogram on a seeded signal, within the STFT's 1e-4
+    of the peak."""
+    x = _clip(12000, seed=2)
+    got = tstft.power_spectrogram(torch.as_tensor(x), 2048, 512, power).numpy()
+    want = np.asarray(jstft.power_spectrogram(jnp.asarray(x), 2048, 512, power))
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
