@@ -33,12 +33,19 @@ for cuBLAS and cuDNN, matching the JAX package's Precision.HIGH on the
 Ridge fit, the STFT, the NMF updates and the GP Cholesky. The neural
 methods' fp32 convolutions follow it; their pipelines run the convs in
 bf16.
+
+cuDNN runs its deterministic algorithms, also set here once: with its
+free choice a seeded training run on the GPU parts from its own rerun
+(the backward of the convolutions sums in an order that varies from run
+to run), and the persistent stream U-Net would then give other bytes
+under another chunking. The JAX package's seeded runs repeat themselves.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 
 __version__ = "0.1.0"
 

@@ -394,5 +394,10 @@ def _stream(args, t_start: float) -> int:
     return 0
 
 
+def entry() -> None:
+    """`audio-inpainting-torch` console entry point (pyproject [project.scripts])."""
+    raise SystemExit(main())
+
+
 if __name__ == "__main__":
     raise SystemExit(main())

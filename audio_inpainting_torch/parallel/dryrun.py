@@ -16,8 +16,8 @@ where the math is the same), and against the one-rank run of the whole
 batch by twice the bounds that each batch has against single clips (both
 sides are batches): composites within 2e-4 (U-Net) and 2e-3 (GAN) of
 their peak, AR windows within 2e-3 of peak. The ranks run cuDNN's
-deterministic kernels: with the others, a GPU run parts from its own
-rerun.
+deterministic algorithms (the package's setting), so a GPU run repeats
+itself.
 
     from audio_inpainting_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(2, "cpu")                 # two gloo ranks on the CPU
@@ -72,7 +72,6 @@ def _per_rank(fn, n: int, ranks: Ranks, *arrays):
 def _dryrun_rank(ranks: Ranks) -> dict:
     """Every mode at ``ranks``; rank 0 also runs the one-rank references
     and returns the differences."""
-    torch.backends.cudnn.deterministic = True
     n, dev = ranks.world, ranks.device
     solo = Ranks.solo(dev)
     lead = ranks.rank == 0

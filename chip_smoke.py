@@ -18,10 +18,12 @@ kHz clip with Part-1-style dropouts, gp on a 0.05 s segment), the Part 1
 pipeline, the Part 2 / Part 0 pipelines, the windowed engine (ar over a
 60 s clip, window by window and batched per window class), the
 streaming engine (linear, ar and the persistent U-Net fed 4,096-sample
-chunks) and the corpus path (phase ``serve``: ``run_serve`` over four
-10 s clips with ar, the U-Net and the GAN, the batched per-clip trainers
-against single clips and timed against the group size, the U-Net's
-window batch, and the live HTTP API) and Stable Diffusion v1 / Riffusion
+chunks, then 44,100-sample ones for the same bytes), the port bench's
+engines legs (phase ``bench``: ``tools/bench.py``'s ``run_engines`` on its
+60 s and 30 s programs, held to its engines gates) and the corpus path
+(phase ``serve``: ``run_serve`` over four 10 s clips with ar, the U-Net
+and the GAN, the batched per-clip trainers against single clips and timed
+against the group size, the U-Net's window batch, and the live HTTP API) and Stable Diffusion v1 / Riffusion
 at full width (phase ``riffusion``: seeded random weights written as
 safetensors and loaded by ``load_riffusion``, held to the SD-v1 key
 manifest, ``riffusion_restore_audio`` on Part 2's clip at 512^2 with 50
@@ -74,10 +76,10 @@ GP_MARGIN_DB = 3.0
 DB_TOL = 0.05
 # the neural loops, GPU against CPU from the same init, fp32 with TF32 off:
 # the CPU tests' bounds against the JAX package (tests/test_torch_neural.py).
-# cuDNN's convolutions sum in another order than the CPU's (the backward
-# not deterministically); the GAN's eval-mode readout reads the
-# pre-BatchNorm conv biases, whose gradient is zero up to rounding and
-# whose Adam steps are therefore rounding noise scaled up to lr
+# cuDNN's convolutions sum in another order than the CPU's; the GAN's
+# eval-mode readout reads the pre-BatchNorm conv biases, whose gradient is
+# zero up to rounding and whose Adam steps are therefore rounding noise
+# scaled up to lr
 NEURAL_LOSS_RTOL = 1e-4
 UNET_COMPOSITE_TOL = 1e-4      # of the composite's peak
 GAN_COMPOSITE_TOL = 1e-3
@@ -112,7 +114,7 @@ BATCH_ERR_OF_PEAK = 1e-3
 BATCH_AGREEMENT_DB = 80.0
 ENGINE_CPU_SECONDS = 10.0
 STREAM_CHUNK = 4096
-UNET_STREAM_SECONDS = 20.0
+UNET_STREAM_SECONDS = 10.0
 # the corpus path: four 10 s clips at 44.1 kHz, (513, 1723) magnitudes
 # padded to (516, 1728), the full U-Net and GAN; the GAN at 300 of its
 # 1500 epochs, as the facade's (FACADE_GAN_EPOCHS). Group sizes of the
@@ -121,15 +123,14 @@ UNET_STREAM_SECONDS = 20.0
 # Batch against single: the CPU tests' bounds against the JAX package
 # (NEURAL_LOSS_RTOL, UNET_COMPOSITE_TOL, GAN_COMPOSITE_TOL; a bf16 GAN fill
 # 1 dB, ROADMAP Queue 3; the U-Net window batch 60 dB), held at the
-# CPU tests' epochs (U-Net 10, GAN 5: tests/test_torch_neural.py), with
-# cuDNN's deterministic kernels. Training amplifies rounding: the grouped
-# and the plain kernels round differently, and cuDNN's default kernels
-# differ from run to run, so over longer runs the single path parts from
-# a rerun of itself (tools/torch_batch_spread.py measures that spread).
-# The serve GAN's 300 epochs and the window batch's 100 run with the
-# default kernels and are printed. Each grouped epoch's peak memory is
-# held under the footprint that sizes the groups (parallel/batch.py,
-# clip_bytes).
+# CPU tests' epochs (U-Net 10, GAN 5: tests/test_torch_neural.py).
+# Training amplifies rounding: the grouped and the plain kernels round
+# differently, so over longer runs a batch parts further from its single
+# clips. The serve GAN's 300 epochs and the window batch's 100 are
+# printed. Every path runs cuDNN's deterministic algorithms (the
+# package's setting), so each repeats itself bit for bit. Each grouped
+# epoch's peak memory is held under the footprint that sizes the groups
+# (parallel/batch.py, clip_bytes).
 SERVE_CLIPS = 4
 SERVE_UNET_EPOCHS = 400
 SERVE_GAN_EPOCHS = 300
@@ -1071,26 +1072,32 @@ def facade_nmf(clean, damaged) -> dict:
 
 def facade_neural(clean, damaged) -> dict:
     """restore(method="unet") and restore(method="gan", original=clean) on
-    the 10 s clip, once each, on the GPU; the gan run's epochs are cut
-    (FACADE_GAN_EPOCHS), as its JSON says."""
+    the 10 s clip on the GPU; the gan run's epochs are cut
+    (FACADE_GAN_EPOCHS), as its JSON says. The seeded unet restore runs
+    twice and must give the same bytes: seeded training repeats itself."""
     from audio_inpainting_torch import restore
     from audio_inpainting_torch.metrics import lsd_db, snr_db
 
     default = {"unet": 400, "gan": 1500}
-    out = {}
+    out, got = {}, {}
     for method, kw in (("unet", {"epochs": FACADE_UNET_EPOCHS}),
                        ("gan", {"epochs": FACADE_GAN_EPOCHS, "original": clean})):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = restore(damaged, SR, method=method, **kw)
+        got[method] = restore(damaged, SR, method=method, **kw)
         wall_s = time.perf_counter() - t0
-        if got.shape != damaged.shape or not np.isfinite(got).all():
+        if got[method].shape != damaged.shape or not np.isfinite(got[method]).all():
             raise AssertionError(f"{method} facade output has the wrong shape "
                                  "or is not finite")
         out[method] = {"epochs": kw["epochs"], "default_epochs": default[method],
                        "wall_s": wall_s,
-                       "snr_db": float(snr_db(clean, got)),
-                       "lsd_db": float(lsd_db(clean, got))}
+                       "snr_db": float(snr_db(clean, got[method])),
+                       "lsd_db": float(lsd_db(clean, got[method]))}
+    again = restore(damaged, SR, method="unet", epochs=FACADE_UNET_EPOCHS)
+    if not np.array_equal(got["unet"], again):
+        raise AssertionError("unet facade: a seeded rerun gave other bytes, max abs "
+                             f"difference {float(np.abs(again - got['unet']).max())}")
+    out["unet"]["rerun_bit_equal"] = True
     return out
 
 
@@ -1762,10 +1769,10 @@ def stream_run(damaged, method: str, chunk: int, dev, warm: bool,
 def phase_stream(dev, clip):
     """The 60 s clip through StreamRestorer in 4,096-sample chunks (~93 ms
     at 44.1 kHz): linear, ar (after warmup), and the persistent U-Net on
-    the first 20 s (400 cold, 100 adapt epochs). linear and ar fed again,
-    without warmup, in 44,100-sample chunks must give the same bytes; ar
-    on the GPU against the CPU on the first 10 s; the kernel alone at
-    every shape the ar stream gave it. Warmup must load the kernel's
+    the first UNET_STREAM_SECONDS (400 cold, 100 adapt epochs). Each fed
+    again, without warmup, in 44,100-sample chunks must give the same
+    bytes; ar on the GPU against the CPU on the first 10 s; the kernel
+    alone at every shape the ar stream gave it. Warmup must load the kernel's
     library and leave the feeds nothing to load, and without warmup the
     feeds must load it once."""
     from audio_inpainting_torch import api
@@ -1786,17 +1793,16 @@ def phase_stream(dev, clip):
             raise AssertionError(f"stream {method}: warmup loaded the kernel "
                                  f"{run['loads_warmup']} times and the feeds "
                                  f"{run['loads_feed']} times, not {loads}")
-        if method != "unet":
-            again = stream_run(damaged, method, SR, dev, warm=False,
-                               kernel_args=kernel_args if method == "ar" else None)
-            if not np.array_equal(out, again.pop("out")):
-                raise AssertionError(f"stream {method}: 4,096- and 44,100-sample "
-                                     "chunks gave different bytes")
-            if again["loads_feed"] != loads[0]:
-                raise AssertionError(f"stream {method} without warmup: the feeds "
-                                     f"loaded the kernel {again['loads_feed']} times")
-            run["unwarmed_44100"] = {k: again[k] for k in (
-                "wall_s", "loads_feed", "first_window_ms", "window_ms_p50")}
+        again = stream_run(damaged[:n], method, SR, dev, warm=False,
+                           kernel_args=kernel_args if method == "ar" else None)
+        if not np.array_equal(out, again.pop("out")):
+            raise AssertionError(f"stream {method}: 4,096- and 44,100-sample "
+                                 "chunks gave different bytes")
+        if again["loads_feed"] != loads[0]:
+            raise AssertionError(f"stream {method} without warmup: the feeds "
+                                 f"loaded the kernel {again['loads_feed']} times")
+        run["unwarmed_44100"] = {k: again[k] for k in (
+            "wall_s", "loads_feed", "first_window_ms", "window_ms_p50")}
         want = api.AR_DEFAULTS["passes"] * run["windows"] if method == "ar" else 0
         if run["launches"] != want:
             raise AssertionError(f"stream {method}: {run['launches']} launches, "
@@ -1811,6 +1817,64 @@ def phase_stream(dev, clip):
     emit({"phase": "stream", "chunk": STREAM_CHUNK, "margin": MARGIN, **res,
           "kernels": rows})
     return {"stream": launches}, rows
+
+
+BENCH_CORRECTNESS = ("passthrough_exact", "chunk_invariant", "filled")
+
+
+def phase_bench(dev, tmp: Path):
+    """The port bench's engines legs (audio_inpainting_torch/tools/bench.py
+    ``run_engines``) at bench.py's sizes on its default input, Part 2's
+    synthetic clip through the int16 chain: windowed ar over the 60 s
+    program with one 4,000-sample hole, the ar stream over it and the
+    persistent U-Net stream over the 30 s three-gap program, each at two
+    chunkings. The bench's engines gates are read by its ``check_quality``:
+    a failed correctness gate (bit-exact passthrough, chunk invariance, the
+    gaps filled) raises, a wall or realtime factor under its gate is
+    printed with the regressions. The kernel at every shape the legs gave
+    it on the program's audio: the streams' warmup windows (a synthetic
+    carrier whose fits may diverge over long gaps, their output thrown
+    away) launch it too, and are counted, but give no rows. The two full
+    suites are not run here: phases part1 and pipelines drive those
+    legs."""
+    from audio_inpainting_torch.io import load_mono_normalized
+    from audio_inpainting_torch.methods import ar
+    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.tools import bench
+
+    sr, clip = load_mono_normalized(bench.bench_input(str(tmp))[0])
+    warming = []
+    real_warmup = bench.StreamRestorer.warmup
+
+    def warmup(self, *args, **kwargs):
+        warming.append(True)
+        try:
+            return real_warmup(self, *args, **kwargs)
+        finally:
+            warming.pop()
+
+    with patched(bench.StreamRestorer, "warmup", warmup), \
+            Spy(ar, "ar_extrapolate",
+                keep=lambda *a: None if warming else keep_kernel_args(*a)) as spy:
+        ar_scan.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bench.run_engines(clip, sr, dev)
+        wall_s = time.perf_counter() - t0
+        launches = ar_scan.LAUNCHES
+    regressions = [r for r in bench.check_quality({"engines": res})
+                   if r["part"] == "engines"]
+    broken = [r for r in regressions if r["metric"] in BENCH_CORRECTNESS]
+    if broken:
+        raise AssertionError(f"bench engines: correctness gates failed: {broken}")
+    if launches == 0 or launches != len(spy.calls):
+        raise AssertionError(f"bench engines: {launches} kernel launches for "
+                             f"{len(spy.calls)} calls")
+    rows = kernel_rows("bench", [c for c in spy.calls if c is not None])
+    emit({"phase": "bench", "input": "synthetic:1", "sr": sr, "engines": res,
+          "regressions": regressions, "wall_s": wall_s, "launches": launches,
+          "launches_warmup": spy.calls.count(None), "kernels": rows})
+    return {"bench": launches}, rows
 
 
 def stream_vs_cpu(damaged, touched, dev) -> dict:
@@ -1844,19 +1908,6 @@ def serve_corpus(tmp: Path):
         save_wav_int16(clean * mask, SR, str(din / f"clip{i}.wav"))
         save_wav_int16(clean, SR, str(dclean / f"clip{i}.wav"))
     return din, dclean
-
-
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN's deterministic kernels inside the block: each path then
-    repeats itself bit for bit, so a comparison shows only what differs
-    between the two paths."""
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = old
 
 
 def timed(fn):
@@ -1986,9 +2037,8 @@ def serve_gan(dev, din: Path, dclean: Path, tmp: Path) -> dict:
     config (bf16, the gap-scoped EMA; the retry arms only at 1500) into
     restore_clips_gan, whose inputs and output are kept. On those inputs
     each clip alone through gan_train_restore, from the same init: at 300
-    epochs printed; at GAN_HELD_EPOCHS, with cuDNN's deterministic
-    kernels, the batch's fill may fall BF16_GAN_FILL_DB short of the single
-    run's."""
+    epochs printed; at GAN_HELD_EPOCHS the batch's fill may fall
+    BF16_GAN_FILL_DB short of the single run's."""
     import audio_inpainting_torch.parallel as parallel
     from audio_inpainting_torch.methods import neural
     from audio_inpainting_torch.pipelines.serve import run_serve
@@ -2015,11 +2065,10 @@ def serve_gan(dev, din: Path, dclean: Path, tmp: Path) -> dict:
     clip_args = [[seen[k][g, :f, :t] for k in ("norm", "rnorm", "masks")]
                  for g in range(SERVE_CLIPS)]
     held_cfg = dataclasses.replace(seen["cfg"], epochs=GAN_HELD_EPOCHS)
-    with cudnn_deterministic():
-        held_out, _ = real(seen["norm"], seen["rnorm"], seen["masks"], held_cfg,
-                           seen["seed"], **seen["kw"])
-        held_one = [neural.gan_train_restore(*args, held_cfg, seeds[g], device=dev)[0]
-                    for g, args in enumerate(clip_args)]
+    held_out, _ = real(seen["norm"], seen["rnorm"], seen["masks"], held_cfg,
+                       seen["seed"], **seen["kw"])
+    held_one = [neural.gan_train_restore(*args, held_cfg, seeds[g], device=dev)[0]
+                for g, args in enumerate(clip_args)]
     clips, single_s = [], 0.0
     for g, args in enumerate(clip_args):
         (one, _, _), s = timed(lambda: neural.gan_train_restore(
@@ -2061,7 +2110,7 @@ def batch_vs_single(dev) -> dict:
     """restore_clips_unet and restore_clips_gan (fp32) on the four corpus
     spectrograms against unet_train_restore and gan_train_restore on
     clips 0 and 3, from the same init, at UNET_HELD_EPOCHS and
-    GAN_HELD_EPOCHS with cuDNN's deterministic kernels."""
+    GAN_HELD_EPOCHS."""
     from audio_inpainting_torch.methods import neural
     from audio_inpainting_torch.parallel import restore_clips_gan, restore_clips_unet
 
@@ -2091,8 +2140,7 @@ def batch_vs_single(dev) -> dict:
                     "gan_composite_err": rel_err(out[g], one[0])}
                 for g, one in singles.items()}
 
-    with cudnn_deterministic():
-        held = {"unet": unet(UNET_HELD_EPOCHS), "gan": gan(GAN_HELD_EPOCHS)}
+    held = {"unet": unet(UNET_HELD_EPOCHS), "gan": gan(GAN_HELD_EPOCHS)}
     for g in BATCH_VS_SINGLE_CLIPS:
         for key, tol in (("unet_loss_rel_err", NEURAL_LOSS_RTOL),
                          ("unet_composite_err", UNET_COMPOSITE_TOL)):
@@ -2172,8 +2220,8 @@ def window_batch(clip) -> dict:
     window by window (one facade call each) and batched (one
     restore_clips_unet per window size): at 100 epochs the walls, clean
     samples bit-identical both ways, the agreement of batched and window
-    by window; at UNET_HELD_EPOCHS, with cuDNN's deterministic kernels,
-    batched against window by window >= 60 dB over the damage."""
+    by window; at UNET_HELD_EPOCHS batched against window by window >= 60
+    dB over the damage."""
     from audio_inpainting_torch import api
     from audio_inpainting_torch.methods.windowed import restore_windowed
     from audio_inpainting_torch.parallel import batch
@@ -2201,8 +2249,7 @@ def window_batch(clip) -> dict:
                                 torch.as_tensor(b["out"][touched]))
 
     seq, bat = run(False, WINDOW_BATCH_EPOCHS), run(True, WINDOW_BATCH_EPOCHS)
-    with cudnn_deterministic():
-        held_snr = agree(run(False, UNET_HELD_EPOCHS), run(True, UNET_HELD_EPOCHS))
+    held_snr = agree(run(False, UNET_HELD_EPOCHS), run(True, UNET_HELD_EPOCHS))
     if not held_snr >= WINDOW_BATCH_AGREEMENT_DB:
         raise AssertionError(f"unet window batch vs window by window at "
                              f"{UNET_HELD_EPOCHS} epochs: {held_snr} dB")
@@ -2356,8 +2403,7 @@ def multi_clips(ranks, lead: bool) -> dict:
     one rank running the ranks' batches (1e-5 of peak), and at
     UNET_HELD_EPOCHS / GAN_HELD_EPOCHS fp32 against one rank's whole
     batch by twice the batch-against-single bounds (a rank's batch and
-    the whole batch each part from single clips by up to one bound);
-    cuDNN deterministic."""
+    the whole batch each part from single clips by up to one bound)."""
     from audio_inpainting_torch.methods import neural
     from audio_inpainting_torch.parallel import restore_clips_gan, restore_clips_unet
 
@@ -2383,25 +2429,24 @@ def multi_clips(ranks, lead: bool) -> dict:
                                  device=dev)[0]
 
     res = {}
-    with cudnn_deterministic():
-        uout, res["unet_wall_s"] = timed(lambda: unet(MULTI_UNET_EPOCHS))
-        gout, res["gan_wall_s"] = timed(lambda: gan(MULTI_GAN_EPOCHS, True))
-        uheld, gheld = unet(UNET_HELD_EPOCHS), gan(GAN_HELD_EPOCHS, False)
-        if lead:
-            res["unet_vs_ranks_batches_err"] = rel_err(uout, ranks_batches(
-                lambda r: unet(MULTI_UNET_EPOCHS, r), world, n))
-            res["gan_vs_ranks_batches_err"] = rel_err(gout, ranks_batches(
-                lambda r: gan(MULTI_GAN_EPOCHS, True, r), world, n))
-            every = list(range(n))
-            res["unet_held_vs_one_rank_err"] = rel_err(uheld, unet(UNET_HELD_EPOCHS, every))
-            res["gan_held_vs_one_rank_err"] = rel_err(gheld, gan(GAN_HELD_EPOCHS, False,
-                                                                 every))
-            for key, tol in (("unet_vs_ranks_batches_err", RANKS_ATOL),
-                             ("gan_vs_ranks_batches_err", RANKS_ATOL),
-                             ("unet_held_vs_one_rank_err", 2 * UNET_COMPOSITE_TOL),
-                             ("gan_held_vs_one_rank_err", 2 * GAN_COMPOSITE_TOL)):
-                if not res[key] <= tol:
-                    raise AssertionError(f"multi at {world} ranks: {key} {res[key]} > {tol}")
+    uout, res["unet_wall_s"] = timed(lambda: unet(MULTI_UNET_EPOCHS))
+    gout, res["gan_wall_s"] = timed(lambda: gan(MULTI_GAN_EPOCHS, True))
+    uheld, gheld = unet(UNET_HELD_EPOCHS), gan(GAN_HELD_EPOCHS, False)
+    if lead:
+        res["unet_vs_ranks_batches_err"] = rel_err(uout, ranks_batches(
+            lambda r: unet(MULTI_UNET_EPOCHS, r), world, n))
+        res["gan_vs_ranks_batches_err"] = rel_err(gout, ranks_batches(
+            lambda r: gan(MULTI_GAN_EPOCHS, True, r), world, n))
+        every = list(range(n))
+        res["unet_held_vs_one_rank_err"] = rel_err(uheld, unet(UNET_HELD_EPOCHS, every))
+        res["gan_held_vs_one_rank_err"] = rel_err(gheld, gan(GAN_HELD_EPOCHS, False,
+                                                             every))
+        for key, tol in (("unet_vs_ranks_batches_err", RANKS_ATOL),
+                         ("gan_vs_ranks_batches_err", RANKS_ATOL),
+                         ("unet_held_vs_one_rank_err", 2 * UNET_COMPOSITE_TOL),
+                         ("gan_held_vs_one_rank_err", 2 * GAN_COMPOSITE_TOL)):
+            if not res[key] <= tol:
+                raise AssertionError(f"multi at {world} ranks: {key} {res[key]} > {tol}")
     return res
 
 
@@ -2560,7 +2605,7 @@ def multi_stft(ranks, lead: bool, damaged) -> dict:
 
 def multi_serve(ranks, lead: bool, din: Path, tmp: Path) -> dict:
     """serve_ranks over the four clips: ar (every WAV byte-equal to one
-    rank's) and the U-Net at UNET_HELD_EPOCHS, cuDNN deterministic (WAVs
+    rank's) and the U-Net at UNET_HELD_EPOCHS (WAVs
     within BATCH_AGREEMENT_DB of one rank's)."""
     from audio_inpainting_torch.io import load_mono_normalized
     from audio_inpainting_torch.methods import ar
@@ -2573,16 +2618,14 @@ def multi_serve(ranks, lead: bool, din: Path, tmp: Path) -> dict:
         ar_scan.LAUNCHES = 0
         res_ar, wall_ar = timed(lambda: serve_ranks(ranks, str(din), str(out / "ar"), "ar"))
         launches = ar_scan.LAUNCHES
-    with cudnn_deterministic():
-        _, wall_unet = timed(lambda: serve_ranks(ranks, str(din), str(out / "unet"), "unet",
-                                                 epochs=UNET_HELD_EPOCHS))
+    _, wall_unet = timed(lambda: serve_ranks(ranks, str(din), str(out / "unet"), "unet",
+                                             epochs=UNET_HELD_EPOCHS))
     res = {"ar_wall_s": wall_ar, "unet_wall_s": wall_unet, "launches": launches,
            "calls": spy.calls, "clips": res_ar["clips"]}
     if lead:
         solo = Ranks.solo(ranks.device)
         serve_ranks(solo, str(din), str(out / "ar1"), "ar")
-        with cudnn_deterministic():
-            serve_ranks(solo, str(din), str(out / "unet1"), "unet", epochs=UNET_HELD_EPOCHS)
+        serve_ranks(solo, str(din), str(out / "unet1"), "unet", epochs=UNET_HELD_EPOCHS)
         agreement = []
         for name in sorted(res_ar["files"]):
             if (out / "ar" / name).read_bytes() != (out / "ar1" / name).read_bytes():
@@ -2794,13 +2837,15 @@ def main(argv: list[str]) -> int:
         by_path.update(windowed_launches)
         stream_launches, stream_rows = phase_stream(dev, clip)
         by_path.update(stream_launches)
+        bench_launches, bench_rows = phase_bench(dev, Path(tmp))
+        by_path.update(bench_launches)
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
         by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
         multi_launches, multi_rows = phase_multi(dev, Path(tmp), clip)
         by_path.update(multi_launches)
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
-              + serve_rows + multi_rows)
+              + bench_rows + serve_rows + multi_rows)
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",

@@ -8,8 +8,8 @@ GPU. These tests need a GPU and skip without one.
   1e-3 (GAN) of peak): cuDNN's grouped and plain convolutions sum in
   other orders.
 - A batch in several groups (a cap of 2 over 3 clips) against one group,
-  by the same bounds, with cuDNN's deterministic kernels; at this size
-  the card's own cap holds all three in one.
+  by the same bounds (the package runs cuDNN's deterministic algorithms);
+  at this size the card's own cap holds all three in one.
 - The grouped BatchNorm keeps each clip's statistics: a grouped
   generator's outputs and running statistics against each clip's own net.
 - ``run_serve(method="ar")`` writes, clip by clip, the bytes of the
@@ -119,7 +119,6 @@ def test_groups_by_memory_equal_one_group_on_gpu(cuda, kind, monkeypatch):
                 seeds, device=cuda)
             return out, torch.stack([dl, gl])
 
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     one_out, one_loss = run()
     monkeypatch.setattr(batch, "group_cap", lambda per_clip, device: 2)
     out, loss = run()

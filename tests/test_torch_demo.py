@@ -167,6 +167,23 @@ def test_cli_check(tmp_path, capsys):
     assert "MISSING 1 artifacts" in out and rels[7] in out
 
 
+@pytest.mark.parametrize("argv, code", [(["check"], 1), (["--help"], 0)])
+def test_console_entry_exits_with_main_code(tmp_path, monkeypatch, capsys, argv, code):
+    # the audio-inpainting-torch script of pyproject.toml's [project.scripts]
+    from audio_inpainting_torch.cli.main import entry
+
+    if argv == ["check"]:
+        argv = ["check", "--assets-dir", str(tmp_path)]      # empty: every artifact missing
+    monkeypatch.setattr(sys, "argv", ["audio-inpainting-torch", *argv])
+    with pytest.raises(SystemExit) as exit_:
+        entry()
+    assert exit_.value.code == code
+    out = capsys.readouterr().out
+    assert ("MISSING" in out) if code else ("usage:" in out)
+    with open(os.path.join(os.path.dirname(__file__), "..", "pyproject.toml")) as f:
+        assert 'audio-inpainting-torch = "audio_inpainting_torch.cli.main:entry"' in f.read()
+
+
 def _figure_calls(tmp_path):
     n, sr, gap = 800, 16000, (320, 480)
     t = np.arange(n, dtype=np.float32) / sr

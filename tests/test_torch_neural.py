@@ -251,3 +251,20 @@ def test_unet_bf16_fill_quality_matches_jax(monkeypatch):
     got, want = _masked_snr_db(tf.numpy(), v, mask), _masked_snr_db(jf, v, mask)
     assert float(tl[-1]) < float(tl[0])
     assert abs(got - want) <= BF16_SNR_MARGIN_DB, (got, want)
+
+
+def test_importing_the_port_selects_cudnn_deterministic_algorithms():
+    """Seeded GPU training repeats itself only on cuDNN's deterministic
+    algorithms (the persistent stream U-Net's chunk invariance rests on
+    it), so importing the package sets the flag; a fresh interpreter
+    shows what the import alone does."""
+    import subprocess
+    import sys
+
+    code = ("import torch; before = torch.backends.cudnn.deterministic; "
+            "import audio_inpainting_torch; "
+            "print(before, torch.backends.cudnn.deterministic, "
+            "torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True).stdout.split()
+    assert out == ["False", "True", "False", "False"]

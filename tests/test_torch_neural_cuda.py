@@ -3,8 +3,9 @@ same functions on the CPU, from the same initial weights (drawn from a
 seeded CPU generator), fp32 with TF32 off. These tests need a GPU and skip
 without one.
 
-cuDNN's convolutions sum in another order than the CPU's, and their
-backward not deterministically, so the bounds are the CPU tests' against
+cuDNN's convolutions sum in another order than the CPU's (the package
+runs cuDNN's deterministic algorithms, so a GPU run repeats itself bit for
+bit, but not the CPU's sums), so the bounds are the CPU tests' against
 the JAX package (tests/test_torch_neural.py): losses within 1e-4
 relative, the U-Net composite within 1e-4 of its peak, the GAN's within
 1e-3 (its eval-mode readout reads the pre-BatchNorm conv biases, whose
@@ -116,3 +117,38 @@ def test_facade_neural_methods_run_on_the_gpu_by_default(cuda):
     for method, kw in (("unet", {}), ("gan", {"original": clean})):
         out = restore(damaged, sr, method, epochs=2, **kw)
         assert out.shape == damaged.shape and np.isfinite(out).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_seeded_training_repeats_itself_on_the_gpu(cuda, bf16):
+    """Two seeded U-Net and GAN fits on the card give the same bytes: the
+    package runs cuDNN's deterministic algorithms, as the JAX package's
+    seeded runs repeat themselves."""
+    v, mask = _spec(f=256, t=512, seed=5)
+    real = v * 2.0 - 1.0
+    inp = real * mask - (1.0 - mask)
+    unets = [neural.unet_train_restore(v, mask, neural.UNetTrainConfig(
+        epochs=20, bf16=bf16), 0, device=cuda) for _ in range(2)]
+    gans = [neural.gan_train_restore(inp, real, mask, neural.GANTrainConfig(
+        epochs=10, bf16=bf16, ema_decay=0.99, ema_scope="gap"), 0, device=cuda)
+        for _ in range(2)]
+    (uf, up, ul), (uf2, up2, ul2) = unets
+    (gf, (gd, gg), _), (gf2, (gd2, gg2), _) = gans
+    assert torch.equal(uf, uf2) and torch.equal(up, up2) and torch.equal(ul, ul2)
+    assert torch.equal(gf, gf2) and torch.equal(gd, gd2) and torch.equal(gg, gg2)
+
+
+@pytest.mark.requires_cuda
+def test_persistent_stream_unet_is_chunk_invariant_on_the_gpu(cuda):
+    """The bench's persistent U-Net stream program, cut to a 4 s clip at
+    16 kHz and 40 cold / 10 adapt epochs: the same bytes at sr // 10 and
+    sr chunks, and every gap filled."""
+    from audio_inpainting_torch.tools import bench
+
+    sr = 16000
+    damaged, spans = bench.unet_stream_program(synth_music_clip(1, sr, 4.0), sr)
+    a, _ = bench.stream_pass(damaged, sr, sr // 10, cuda, "unet", epochs=40, adapt_epochs=10)
+    b, _ = bench.stream_pass(damaged, sr, sr, cuda, "unet", epochs=40, adapt_epochs=10)
+    assert np.array_equal(a, b)
+    assert all(np.abs(b[s:e]).max() > 1e-3 for s, e in spans)

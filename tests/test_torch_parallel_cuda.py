@@ -93,15 +93,10 @@ def _counted_rank(ranks: Ranks) -> dict:
 
 
 def _fit_rank(ranks: Ranks):
-    """Three steps of the shared U-Net under cuDNN's deterministic
-    kernels (with the others a run parts from its own rerun)."""
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        x, y, m = _batch()
-        return fit_shared_unet(x, y, m, ranks, steps=3)
-    finally:
-        torch.backends.cudnn.deterministic = old
+    """Three steps of the shared U-Net (on cuDNN's deterministic
+    algorithms, the package's setting: a run repeats itself)."""
+    x, y, m = _batch()
+    return fit_shared_unet(x, y, m, ranks, steps=3)
 
 
 def _batch():
