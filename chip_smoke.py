@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py multi      # phase multi alone, no result lines
     python3 chip_smoke.py prior      # phase prior alone, no result lines
+    python3 chip_smoke.py tools      # phase tools alone, no result lines
 
 It builds the port's CUDA kernel from csrc/, holds it against its plain
 torch version at the shapes the restore path gives it, times both, then
@@ -20,7 +21,11 @@ pipeline, the Part 2 / Part 0 pipelines, the windowed engine (ar over a
 streaming engine (linear, ar and the persistent U-Net fed 4,096-sample
 chunks, then 44,100-sample ones for the same bytes), the port bench's
 engines legs (phase ``bench``: ``tools/bench.py``'s ``run_engines`` on its
-60 s and 30 s programs, held to its engines gates) and the corpus path
+60 s and 30 s programs, held to its engines gates), the port's measurement
+tools (phase ``tools``: ``tools/mfu.py``'s roofline rows at full shapes,
+``serve_throughput`` and ``stream_throughput`` cut in depth, and
+``trace_breakdown`` on a traced U-Net epoch against ``device_profile``) and
+the corpus path
 (phase ``serve``: ``run_serve`` over four 10 s clips with ar, the U-Net
 and the GAN, the batched per-clip trainers against single clips and timed
 against the group size, the U-Net's window batch, and the live HTTP API) and Stable Diffusion v1 / Riffusion
@@ -62,9 +67,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-FP32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
+from audio_inpainting_torch.tools import roofline
+from audio_inpainting_torch.tools.trace_breakdown import LAUNCH_CALLS, union_ms
+from audio_inpainting_torch.utils.profiling import PRIMING, prime_session
+
 SR = 44100
 # the bound the CPU tests hold the port's NMF to against the JAX package
 # (tests/test_torch_nmf.py): filled columns within 1e-5 of their peak
@@ -169,6 +175,11 @@ GP_RANKS_ATOL = 5e-5
 GP_THETA_RTOL = 1e-4           # the ranks' winner against one rank's
 STFT_RTOL_OF_PEAK = 1e-4
 MULTI_DEVICE = "cuda:0"        # the card the gloo ranks share
+# phase tools (the measurement tools at full shapes, cut in depth)
+TOOLS_MFU_CALLS = 3
+TOOLS_SERVE_EPOCHS = 50
+TOOLS_STREAM_MINUTES = 0.5
+TRACE_BUSY_RTOL = 0.05         # trace_breakdown's busy time against device_profile's
 
 
 T0 = time.perf_counter()
@@ -212,49 +223,49 @@ def cuda_ms(fn, calls: int, rounds: int = 5, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def union_ms(intervals) -> float:
-    """The length of the union of (start, end) intervals in µs, in ms."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
-
-
 def device_profile(fn, top: int = 8, kernel: str = "ar_scan") -> dict:
-    """torch.profiler over one call of ``fn``: device busy time (the union
-    of the device entries' intervals: cuDNN runs some kernels side by side
-    on its own streams, so their sum, ``device_sum_ms``, may pass the
-    wall), the wall time, the number of device calls (kernels, copies),
-    the ``top`` device entries by self time, and the device time of the
-    entries whose name holds ``kernel``."""
+    """torch.profiler over one call of ``fn``, the session opened as
+    utils.profiling.device_trace opens it (``prime_session``: the device
+    records a session may lose at its start are the priming's, and only
+    what starts after it is read): device busy time (the union of the
+    device entries' intervals: cuDNN runs some kernels side by side on its
+    own streams, so their sum, ``device_sum_ms``, may pass the wall), the
+    wall time, the number of device calls (kernels, copies) and of the
+    launches that have none (the session lost their records), the ``top``
+    device entries by time, and the device time of the entries whose name
+    holds ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_session()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    primed = max(e.time_range.end for e in events if e.name == PRIMING)
     # device-side entries only (kernels, copies): an operator's own entry
     # would count its kernels' time a second time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    sum_ms = sum(e.self_device_time_total for e in events) / 1e3
-    busy_ms = union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-    kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_sum_ms": sum_ms,
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.time_range.start >= primed]
+    launches = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and LAUNCH_CALLS.search(e.name) and e.time_range.start >= primed)
+    by_name: dict[str, list[float]] = {}
+    for e in device:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    rows = sorted(((sum(v), len(v), k) for k, v in by_name.items()), reverse=True)
+    busy_ms = union_ms((e.time_range.start, e.time_range.end) for e in device)
+    kernel_ms = sum(ms for ms, _, name in rows if kernel in name)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_sum_ms": sum(r[0] for r in rows),
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "device_calls": sum(e.count for e in events),
+            "device_calls": len(device), "unrecorded": max(0, launches - len(device)),
             "kernel_device_ms": kernel_ms,
             "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms else None,
-            "top": [{"name": e.key[:60], "calls": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in events[:top]]}
+            "top": [{"name": name[:60], "calls": n, "device_ms": ms}
+                    for ms, n, name in rows[:top]]}
 
 
 def agreement_snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -271,11 +282,10 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def bound_ms(B: int, p: int, steps: int) -> tuple[float, str]:
     """Least time for the recurrence's work: FLOPs over the fp32 peak or
-    bytes (eps in, out, parameters) over HBM bandwidth, the larger."""
-    flops = 2.0 * B * p * steps
-    nbytes = 4.0 * B * steps * 2 + 4.0 * B * (2 * p + 3)
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    bytes (eps in, out, parameters) over HBM bandwidth, the larger
+    (tools/roofline.py's count and H100_PEAKS)."""
+    return roofline.bound_ms(roofline.ar_flops(B, p, steps),
+                             roofline.ar_bytes(B, p, steps), torch.float32)
 
 
 def small_inputs(B, p, steps, dev):
@@ -409,39 +419,27 @@ def diffusion_image():
     return damaged, img, diff.mask_from_image(img), smin, smax
 
 
-def unet_macs(model, shape) -> int:
-    """Multiply-accumulates of one forward of ``model`` at input ``shape``,
-    from the shapes its convolutions and dense layers see (forward hooks);
-    GroupNorm, SiLU and the adds are not counted."""
-    from torch import nn
-
-    from audio_inpainting_torch.models.unet import Conv
-
-    total = 0
-
-    def hook(mod, args, out):
-        nonlocal total
-        if isinstance(mod, Conv):            # weight (Co, Ci, k, k); transposed (Ci, Co, k, k)
-            taps = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
-            total += (args[0].numel() if mod.transpose else out.numel()) * taps
-        else:
-            total += out.numel() * mod.in_features
-
-    dev = next(model.parameters()).device
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (Conv, nn.Linear))]
+def model_macs(call) -> int:
+    """Multiply-accumulates of ``call()``: half its FLOPs as
+    tools/roofline.py's ``count_flops`` counts them from the shapes of its
+    convolutions, dense layers and attention products. Norms,
+    activations, the softmax and the adds are not counted."""
     with torch.no_grad():
-        model(torch.zeros(shape, device=dev), torch.zeros(shape[0], device=dev))
-    for h in handles:
-        h.remove()
-    return total
+        return sum(roofline.count_flops(call).values()) // 2
+
+
+def unet_macs(model, shape) -> int:
+    """Multiply-accumulates of one forward of ``model`` (a DiffusionUNet)
+    at input ``shape``."""
+    dev = next(model.parameters()).device
+    return model_macs(lambda: model(torch.zeros(shape, device=dev),
+                                    torch.zeros(shape[0], device=dev)))
 
 
 def flop_bound(flops: float, nbytes: float) -> dict:
     """The least time for ``flops`` fp32 operations moving ``nbytes``."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return {"gflop": flops / 1e9, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    bms, bound_by = roofline.bound_ms(flops, nbytes, torch.float32)
+    return {"gflop": flops / 1e9, "bound_ms": bms, "bound_by": bound_by}
 
 
 def phase_diffusion(dev):
@@ -611,6 +609,7 @@ def phase_prior(dev, tmp: Path) -> int:
     kernel's launches on the path (none: the trainer has no hand kernel)."""
     from audio_inpainting_torch.methods import diffusion as diff
     from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.tools import trace_breakdown
     from audio_inpainting_torch.tools.train_diffusion_prior import build_corpus, loss_curve
     from audio_inpainting_torch.utils import (Timer, device_trace, latest_checkpoint,
                                               load_params, save_params)
@@ -670,7 +669,8 @@ def phase_prior(dev, tmp: Path) -> int:
                                     key=0, masks_u8=masks, device=dev)
         torch.cuda.synchronize()
     traces = sorted(trace_dir.glob("*.pt.trace.json"))
-    kernels = sum(1 for f in traces for e in json.loads(f.read_text()).get("traceEvents", [])
+    # the steps' kernels: trace_breakdown reads past device_trace's priming
+    kernels = sum(1 for f in traces for e in trace_breakdown.load_events(str(f))
                   if e.get("cat") == "kernel")
     if not traces or not kernels:
         raise AssertionError(f"prior: device_trace wrote {traces} with {kernels} kernels")
@@ -748,44 +748,10 @@ class SmokeTextEncoder:
         return types.SimpleNamespace(last_hidden_state=torch.tensor(ctx, dtype=torch.float32))
 
 
-def sd_macs(model, call) -> int:
-    """Multiply-accumulates of ``call()`` through ``model``: its
-    convolutions, dense layers and attention products (q k^T and p v),
-    from the shapes they see (forward hooks). Norms, activations, the
-    softmax and the adds are not counted."""
-    from torch import nn
-
-    from audio_inpainting_torch.models.sd.unet2d import Attention
-    from audio_inpainting_torch.models.sd.vae import VAEAttention
-
-    total = 0
-
-    def hook(mod, args, out):
-        nonlocal total
-        if isinstance(mod, nn.Conv2d):
-            total += out.numel() * mod.weight[0].numel()
-        elif isinstance(mod, nn.Linear):
-            total += out.numel() * mod.in_features
-        elif isinstance(mod, Attention):
-            ctx = args[1] if len(args) > 1 else args[0]
-            total += 2 * args[0].shape[0] * args[0].shape[1] * ctx.shape[1] * mod.to_q.out_features
-        else:                                   # VAEAttention: one head over H x W
-            b, c, h, w = args[0].shape
-            total += 2 * b * (h * w) ** 2 * c
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (nn.Conv2d, nn.Linear, Attention, VAEAttention))]
-    with torch.no_grad():
-        call()
-    for h in handles:
-        h.remove()
-    return total
-
-
 def timed_bound(fn, model, call_bytes: float, calls: int = 3) -> dict:
     """``fn``'s device ms (CUDA events) beside its FLOP bound: 2 x its MACs
     over the fp32 peak, or the weights and ``call_bytes`` over HBM."""
-    macs = sd_macs(model, fn)
+    macs = model_macs(fn)
     n_params = sum(p.numel() for p in model.parameters())
     with torch.no_grad():
         ms = cuda_ms(fn, calls=calls, rounds=3)
@@ -1877,6 +1843,92 @@ def phase_bench(dev, tmp: Path):
     return {"bench": launches}, rows
 
 
+def phase_tools(dev, tmp: Path):
+    """The port's measurement tools (audio_inpainting_torch/tools/) at
+    full shapes, cut in depth: every roofline row of ``mfu`` at
+    TOOLS_MFU_CALLS timed calls, none past 100 % of its peak;
+    ``serve_throughput`` with the U-Net at TOOLS_SERVE_EPOCHS epochs,
+    batches of 1 and 2; ``stream_throughput --method ar`` over
+    TOOLS_STREAM_MINUTES of the bench's input, held to its passthrough and
+    fill checks, and the kernel against its plain loop at every shape the
+    stream gave it; ``trace_breakdown`` over a ``device_trace`` of one fp32
+    U-Net epoch at (516, 1728): every launch in it has its device record,
+    and its busy time agrees with ``device_profile``'s of the next epoch
+    within TRACE_BUSY_RTOL (consecutive epochs' busy times part by under
+    2 % on the card). Before it, the control: the epoch before, traced by
+    a session opened without ``prime_session``, and its launches with no
+    device record (not held: the loss varies with what the process ran
+    before). The tools' own lines go to standard error."""
+    from audio_inpainting_torch.io import load_mono_normalized
+    from audio_inpainting_torch.methods import ar, neural
+    from audio_inpainting_torch.ops import ar_scan
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from audio_inpainting_torch.tools import (bench, mfu, serve_throughput,
+                                              stream_throughput, trace_breakdown)
+    from audio_inpainting_torch.utils import device_trace
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = list(mfu.measure(dev, calls=TOOLS_MFU_CALLS))
+        mfu_s = time.perf_counter() - t0
+        over = [r for r in rows if not (r["mfu_pct"] <= 100.0 and r["hbm_pct"] <= 100.0)]
+        if over:
+            raise AssertionError(f"tools: roofline rows past 100 % of a peak: {over}")
+        serve = serve_throughput.run("unet", TOOLS_SERVE_EPOCHS, (1, 2),
+                                     *serve_throughput.PART1_SHAPE, dev)
+        path, label = bench.bench_input(str(tmp))
+        sr, clip = load_mono_normalized(path)
+        with Spy(ar, "ar_extrapolate", keep=keep_kernel_args) as spy:
+            ar_scan.LAUNCHES = 0
+            stream = stream_throughput.run(clip, sr, minutes=TOOLS_STREAM_MINUTES,
+                                           method="ar", device=dev, input_label=label)
+            launches = ar_scan.LAUNCHES
+    if not (stream["passthrough_exact"] is True and stream["all_gaps_filled"]):
+        raise AssertionError(f"tools: stream_throughput's checks failed: {stream}")
+    if launches == 0 or launches != len(spy.calls):
+        raise AssertionError(f"tools: stream_throughput launched the kernel {launches} "
+                             f"times for {len(spy.calls)} calls")
+
+    mag_norm, mask = part1_spectrogram()
+    trainer = neural.UNetTrainer(mag_norm.to(dev), mask.to(dev), neural.UNetTrainConfig(), 0)
+    for _ in range(3):
+        trainer.epoch()
+    trace_dir, unprimed_dir = str(tmp / "tools_trace"), str(tmp / "tools_unprimed")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 on_trace_ready=tensorboard_trace_handler(unprimed_dir)):
+        trainer.epoch()
+        torch.cuda.synchronize()
+    unprimed = {**trace_breakdown.unrecorded(unprimed_dir),
+                "busy_ms": trace_breakdown.busy_share(unprimed_dir)["busy_ms"]}
+    with device_trace(trace_dir):
+        trainer.epoch()
+        torch.cuda.synchronize()
+    kernels, total_ms = trace_breakdown.breakdown(trace_dir)
+    traced = trace_breakdown.busy_share(trace_dir)
+    records = trace_breakdown.unrecorded(trace_dir)
+    prof = device_profile(trainer.epoch, top=3, kernel="conv")
+    busy_rel = traced["busy_ms"] / prof["device_busy_ms"] - 1.0
+    if not (records["launches"] > 0 and records["unrecorded"] == 0
+            and prof["unrecorded"] == 0 and abs(busy_rel) <= TRACE_BUSY_RTOL):
+        raise AssertionError(f"tools: trace_breakdown's busy {traced['busy_ms']} ms "
+                             f"({records}) against device_profile's "
+                             f"{prof['device_busy_ms']} ms on the next epoch "
+                             f"({prof['unrecorded']} unrecorded)")
+    krows = kernel_rows("tools", spy.calls)
+    emit({"phase": "tools", "mfu_calls": TOOLS_MFU_CALLS, "mfu_s": mfu_s, "mfu": rows,
+          "serve": serve, "stream": stream, "launches": launches,
+          "trace": {"kernels_ms": total_ms, "top": kernels[:5], **traced, **records,
+                    "next_epoch": {"device_profile_busy_ms": prof["device_busy_ms"],
+                                   "device_calls": prof["device_calls"],
+                                   "unrecorded": prof["unrecorded"],
+                                   "busy_rel_diff": busy_rel},
+                    "epoch_before_unprimed": unprimed},
+          "kernels": krows})
+    return {"tools": launches}, krows
+
+
 def stream_vs_cpu(damaged, touched, dev) -> dict:
     """The ar stream over the first 10 s on the GPU and on the CPU (the
     plain loop), both fed 4,096-sample chunks without warmup."""
@@ -2814,10 +2866,12 @@ def main(argv: list[str]) -> int:
         return 1
     dev = torch.device("cuda")
     phase_env(dev)
-    if argv in (["multi"], ["prior"]):      # one phase alone, for work on it
+    if argv in (["multi"], ["prior"], ["tools"]):   # one phase alone, for work on it
         with tempfile.TemporaryDirectory() as tmp:
             if argv == ["multi"]:
                 phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
+            elif argv == ["tools"]:
+                phase_tools(dev, Path(tmp))
             else:
                 phase_prior(dev, Path(tmp))
         print(gpu_name_and_power(), flush=True)
@@ -2839,13 +2893,15 @@ def main(argv: list[str]) -> int:
         by_path.update(stream_launches)
         bench_launches, bench_rows = phase_bench(dev, Path(tmp))
         by_path.update(bench_launches)
+        tools_launches, tools_rows = phase_tools(dev, Path(tmp))
+        by_path.update(tools_launches)
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
         by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
         multi_launches, multi_rows = phase_multi(dev, Path(tmp), clip)
         by_path.update(multi_launches)
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
-              + bench_rows + serve_rows + multi_rows)
+              + bench_rows + tools_rows + serve_rows + multi_rows)
     facade = fitted[0]
     emit({"kernels": [{
         "name": "ar_scan", "route": "cuda",
