@@ -34,6 +34,12 @@ pad changes the result and is kept. Pad values: 0 for the U-Net input, -1
 The initial weights come from ``_draw_init``, a seeded CPU generator, so
 every device starts from the same numbers; the tests replace it with the
 JAX package's init.
+
+Each trainer is one training run (``utils.profiling.new_run``): its
+build, each epoch and its readout open the spans ``unet.build``,
+``unet.epoch``, ``unet.readout`` (``gan.*`` for the GAN) with the run's id
+and ``clips``, the group size G; ``_gan_run`` opens ``gan.run`` with its
+``attempt``. They are recorded only while a profiler session is active.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,6 +56,7 @@ from torch.func import functional_call
 from ..device import as_f32
 from ..models import (Discriminator, GeneratorUNet, SimpleUNet, patchgan_map_shape,
                       stack_states)
+from ..utils.profiling import new_run, span
 
 
 @dataclass(frozen=True)
@@ -100,6 +108,12 @@ def _dtype(cfg) -> torch.dtype:
 def _clips(x: torch.Tensor) -> torch.Tensor:
     """(G, F, T); one clip (F, T) is a group of one."""
     return x[None] if x.dim() == 2 else x
+
+
+def _group_size(x) -> int:
+    """G of an (F, T) or (G, F, T) array or tensor."""
+    shape = np.shape(x)
+    return 1 if len(shape) == 2 else shape[0]
 
 
 def _nchw(clips: torch.Tensor) -> torch.Tensor:
@@ -189,44 +203,47 @@ class UNetTrainer:
     def __init__(self, mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
                  seed=0, valid=None, composite_mask=None, device=None,
                  init_state=None):
-        mag_norm = as_f32(mag_norm, device)
-        dev = mag_norm.device
-        self.single = mag_norm.dim() == 2
-        tgt, (self.f0, self.t0) = _pad4(_clips(mag_norm))
-        # pad = kept: out of the masked loss
-        msk, _ = _pad4(_clips(as_f32(mask, dev)), 1.0)
-        vld = _valid4(self.f0, self.t0, dev).expand_as(tgt)
-        if valid is not None:
-            vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
-        self.cfg = cfg
-        self.tgt_clips = tgt
-        self.inp = _nchw(tgt * msk)
-        self.tgt = _nchw(tgt)
-        self.vld = _nchw(vld)
-        self.inv = (1.0 - _nchw(msk)) * self.vld
-        # a clip whose every column is damaged has sum(valid) == 0: the
-        # loss is then 0 with zero gradients, not 0/0
-        self.denom = self.vld.sum(dim=(0, 2, 3)).clamp_min(1.0)
-        self.cmsk = (msk if composite_mask is None
-                     else _pad4(_clips(as_f32(composite_mask, dev)), 1.0)[0])
-        seeds = _seeds(seed, tgt.shape[0])
-        (self.model,) = _init_models("unet", cfg, seeds, 0, tuple(tgt.shape[1:]), dev,
-                                     None if init_state is None else [init_state])
-        self.opt = _adam(self.model, cfg.lr, (0.9, 0.999), dev)
+        self.run, self.clips = new_run(), _group_size(mag_norm)
+        with span("unet.build", run=self.run, clips=self.clips):
+            mag_norm = as_f32(mag_norm, device)
+            dev = mag_norm.device
+            self.single = mag_norm.dim() == 2
+            tgt, (self.f0, self.t0) = _pad4(_clips(mag_norm))
+            # pad = kept: out of the masked loss
+            msk, _ = _pad4(_clips(as_f32(mask, dev)), 1.0)
+            vld = _valid4(self.f0, self.t0, dev).expand_as(tgt)
+            if valid is not None:
+                vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
+            self.cfg = cfg
+            self.tgt_clips = tgt
+            self.inp = _nchw(tgt * msk)
+            self.tgt = _nchw(tgt)
+            self.vld = _nchw(vld)
+            self.inv = (1.0 - _nchw(msk)) * self.vld
+            # a clip whose every column is damaged has sum(valid) == 0: the
+            # loss is then 0 with zero gradients, not 0/0
+            self.denom = self.vld.sum(dim=(0, 2, 3)).clamp_min(1.0)
+            self.cmsk = (msk if composite_mask is None
+                         else _pad4(_clips(as_f32(composite_mask, dev)), 1.0)[0])
+            seeds = _seeds(seed, tgt.shape[0])
+            (self.model,) = _init_models("unet", cfg, seeds, 0, tuple(tgt.shape[1:]), dev,
+                                         None if init_state is None else [init_state])
+            self.opt = _adam(self.model, cfg.lr, (0.9, 0.999), dev)
 
     def epoch(self) -> torch.Tensor:
         """One Adam step; returns the loss before it, per clip (G,) (a
         device scalar for one (F, T) clip)."""
-        self.opt.zero_grad()
-        out = self.model(self.inp)
-        if self.cfg.masked_loss:
-            diff = out * self.inv - self.tgt * self.inv
-        else:
-            diff = (out - self.tgt) * self.vld
-        loss = (diff ** 2).sum(dim=(0, 2, 3)) / self.denom
-        loss.sum().backward()
-        self.opt.step()
-        return _per_clip(loss.detach(), self.single)
+        with span("unet.epoch", run=self.run, clips=self.clips):
+            self.opt.zero_grad()
+            out = self.model(self.inp)
+            if self.cfg.masked_loss:
+                diff = out * self.inv - self.tgt * self.inv
+            else:
+                diff = (out - self.tgt) * self.vld
+            loss = (diff ** 2).sum(dim=(0, 2, 3)) / self.denom
+            loss.sum().backward()
+            self.opt.step()
+            return _per_clip(loss.detach(), self.single)
 
     @torch.no_grad()
     def restore(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -234,11 +251,12 @@ class UNetTrainer:
         The eval forward sees the composite-masked input: only the real
         damage hidden, synthetic training stripes visible again as
         context."""
-        seen = self.tgt_clips * self.cmsk
-        pred = self.model(_nchw(seen))[0]
-        final = seen + pred * (1.0 - self.cmsk)
-        return (_per_clip(final[:, :self.f0, :self.t0], self.single),
-                _per_clip(pred[:, :self.f0, :self.t0], self.single))
+        with span("unet.readout", run=self.run, clips=self.clips):
+            seen = self.tgt_clips * self.cmsk
+            pred = self.model(_nchw(seen))[0]
+            final = seen + pred * (1.0 - self.cmsk)
+            return (_per_clip(final[:, :self.f0, :self.t0], self.single),
+                    _per_clip(pred[:, :self.f0, :self.t0], self.single))
 
 
 def unet_train_restore(mag_norm, mask, cfg: UNetTrainConfig = UNetTrainConfig(),
@@ -296,65 +314,68 @@ class GANTrainer:
     def __init__(self, input_norm, real_norm, mask,
                  cfg: GANTrainConfig = GANTrainConfig(), seed=0,
                  attempt: int = 0, device=None, valid=None):
-        input_norm = as_f32(input_norm, device)
-        dev = input_norm.device
-        self.single = input_norm.dim() == 2
-        inp, (self.f0, self.t0) = _pad4(_clips(input_norm), -1.0)
-        vld = _valid4(self.f0, self.t0, dev).expand_as(inp)
-        if valid is not None:
-            vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
-        self.inp = _nchw(inp)
-        self.real = _nchw(_pad4(_clips(as_f32(real_norm, dev)), -1.0)[0])
-        self.msk = _nchw(_pad4(_clips(as_f32(mask, dev)), 1.0)[0])   # pad = kept
-        self.vld = _nchw(vld)
-        self.cfg = cfg
-        self.inv = 1.0 - self.msk
-        self.rec_inv = self.inv * self.vld    # L1 only over the valid extent
-        self.rec_denom = self.vld.sum(dim=(0, 2, 3))
-        shape = tuple(inp.shape[1:])
-        map_shape = patchgan_map_shape(*shape)
-        self.d_live = min(map_shape) > 0
-        if not self.d_live:
-            warnings.warn(
-                f"clip {shape[0]}x{shape[1]} is too small for the PatchGAN "
-                f"discriminator (logits map {map_shape} is empty); the "
-                "adversarial term is 0 and the generator trains on the L1 "
-                "term only", stacklevel=2)
-        seeds = _seeds(seed, inp.shape[0])
-        self.g, self.d = _init_models("gan", cfg, seeds, attempt, shape, dev)
-        self.g_params = list(self.g.parameters())
-        self.g_opt = _adam(self.g, cfg.lr, (cfg.b1, cfg.b2), dev)
-        self.d_opt = _adam(self.d, cfg.lr, (cfg.b1, cfg.b2), dev)
-        self.ema = ([torch.zeros_like(p) for p in self.g_params]
-                    if cfg.ema_decay > 0.0 else None)
+        self.run, self.clips = new_run(), _group_size(input_norm)
+        with span("gan.build", run=self.run, clips=self.clips):
+            input_norm = as_f32(input_norm, device)
+            dev = input_norm.device
+            self.single = input_norm.dim() == 2
+            inp, (self.f0, self.t0) = _pad4(_clips(input_norm), -1.0)
+            vld = _valid4(self.f0, self.t0, dev).expand_as(inp)
+            if valid is not None:
+                vld = vld * _pad4(_clips(as_f32(valid, dev)))[0]
+            self.inp = _nchw(inp)
+            self.real = _nchw(_pad4(_clips(as_f32(real_norm, dev)), -1.0)[0])
+            self.msk = _nchw(_pad4(_clips(as_f32(mask, dev)), 1.0)[0])   # pad = kept
+            self.vld = _nchw(vld)
+            self.cfg = cfg
+            self.inv = 1.0 - self.msk
+            self.rec_inv = self.inv * self.vld    # L1 only over the valid extent
+            self.rec_denom = self.vld.sum(dim=(0, 2, 3))
+            shape = tuple(inp.shape[1:])
+            map_shape = patchgan_map_shape(*shape)
+            self.d_live = min(map_shape) > 0
+            if not self.d_live:
+                warnings.warn(
+                    f"clip {shape[0]}x{shape[1]} is too small for the PatchGAN "
+                    f"discriminator (logits map {map_shape} is empty); the "
+                    "adversarial term is 0 and the generator trains on the L1 "
+                    "term only", stacklevel=2)
+            seeds = _seeds(seed, inp.shape[0])
+            self.g, self.d = _init_models("gan", cfg, seeds, attempt, shape, dev)
+            self.g_params = list(self.g.parameters())
+            self.g_opt = _adam(self.g, cfg.lr, (cfg.b1, cfg.b2), dev)
+            self.d_opt = _adam(self.d, cfg.lr, (cfg.b1, cfg.b2), dev)
+            self.ema = ([torch.zeros_like(p) for p in self.g_params]
+                        if cfg.ema_decay > 0.0 else None)
 
     def epoch(self) -> tuple[torch.Tensor, torch.Tensor]:
         """One epoch; returns (d_loss, g_loss) per clip, each (G,) (device
         scalars for one (F, T) clip)."""
-        cfg = self.cfg
-        fake = self.g(self.inp, True)
-        completed = self.inp * self.msk + fake * self.inv
-        if self.d_live:
-            d_loss = 0.5 * (_bce(self.d(self.real, True), 1.0)
-                            + _bce(self.d(completed.detach(), True), 0.0))
-            self.d_opt.zero_grad()
-            d_loss.sum().backward()
-            self.d_opt.step()
-            adv = _bce(self.d(completed, True), 1.0)
-        else:
-            d_loss = adv = fake.new_zeros(fake.shape[1])
-        rec = ((fake * self.rec_inv - self.real * self.rec_inv).abs().sum(dim=(0, 2, 3))
-               / self.rec_denom)
-        g_loss = cfg.l1_weight * rec + cfg.adv_weight * adv
-        self.g_opt.zero_grad()
-        g_loss.sum().backward(inputs=self.g_params)
-        self.g_opt.step()
-        if self.ema is not None:
-            with torch.no_grad():
-                torch._foreach_mul_(self.ema, cfg.ema_decay)
-                torch._foreach_add_(self.ema, self.g_params, alpha=1.0 - cfg.ema_decay)
-        return (_per_clip(d_loss.detach(), self.single),
-                _per_clip(g_loss.detach(), self.single))
+        with span("gan.epoch", run=self.run, clips=self.clips):
+            cfg = self.cfg
+            fake = self.g(self.inp, True)
+            completed = self.inp * self.msk + fake * self.inv
+            if self.d_live:
+                d_loss = 0.5 * (_bce(self.d(self.real, True), 1.0)
+                                + _bce(self.d(completed.detach(), True), 0.0))
+                self.d_opt.zero_grad()
+                d_loss.sum().backward()
+                self.d_opt.step()
+                adv = _bce(self.d(completed, True), 1.0)
+            else:
+                d_loss = adv = fake.new_zeros(fake.shape[1])
+            rec = ((fake * self.rec_inv - self.real * self.rec_inv).abs().sum(dim=(0, 2, 3))
+                   / self.rec_denom)
+            g_loss = cfg.l1_weight * rec + cfg.adv_weight * adv
+            self.g_opt.zero_grad()
+            g_loss.sum().backward(inputs=self.g_params)
+            self.g_opt.step()
+            if self.ema is not None:
+                with torch.no_grad():
+                    torch._foreach_mul_(self.ema, cfg.ema_decay)
+                    torch._foreach_add_(self.ema, self.g_params, alpha=1.0 - cfg.ema_decay)
+            return (_per_clip(d_loss.detach(), self.single),
+                    _per_clip(g_loss.detach(), self.single))
 
     @torch.no_grad()
     def _eval(self, params: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -363,11 +384,12 @@ class GANTrainer:
     def restore(self) -> torch.Tensor:
         """The composite of the final eval-mode inference, (G, F, T) ((F, T)
         for one clip)."""
-        params = dict(self.g.named_parameters())
-        ema = None if self.ema is None else dict(zip(params, self.ema))
-        fake = gan_readout_fake(self._eval, params, ema, self.msk, self.vld, self.cfg)
-        final = self.inp * self.msk + fake * (1.0 - self.msk)
-        return _per_clip(final[0, :, :self.f0, :self.t0], self.single)
+        with span("gan.readout", run=self.run, clips=self.clips):
+            params = dict(self.g.named_parameters())
+            ema = None if self.ema is None else dict(zip(params, self.ema))
+            fake = gan_readout_fake(self._eval, params, ema, self.msk, self.vld, self.cfg)
+            final = self.inp * self.msk + fake * (1.0 - self.msk)
+            return _per_clip(final[0, :, :self.f0, :self.t0], self.single)
 
     @torch.no_grad()
     def hole_l1(self, final: torch.Tensor) -> torch.Tensor:
@@ -408,9 +430,10 @@ def _gan_run(input_norm, real_norm, mask, cfg: GANTrainConfig, seed, attempt: in
              device, valid=None):
     """One training run: (trainer, composite, (d_losses, g_losses)), the
     losses stacked over the epochs."""
-    trainer = GANTrainer(input_norm, real_norm, mask, cfg, seed, attempt, device, valid)
-    hist = [trainer.epoch() for _ in range(cfg.epochs)]
-    final = trainer.restore()
+    with span("gan.run", attempt=attempt):
+        trainer = GANTrainer(input_norm, real_norm, mask, cfg, seed, attempt, device, valid)
+        hist = [trainer.epoch() for _ in range(cfg.epochs)]
+        final = trainer.restore()
     empty = final.new_zeros((0, *final.shape[:-2]))
     return trainer, final, (torch.stack([d for d, _ in hist]) if hist else empty,
                             torch.stack([g for _, g in hist]) if hist else empty)

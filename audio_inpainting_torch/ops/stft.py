@@ -14,7 +14,8 @@ Both go through ``torch.stft`` (cuFFT on the GPU). The scipy convention
 pads explicitly and runs uncentred; its inverse is an explicit windowed
 overlap-add, since ``torch.istft`` refuses an uncentred Hann whose
 envelope is zero at the first sample. Spectra are (n_bins, n_frames), the
-JAX package's orientation.
+JAX package's orientation. Each call of ``stft`` and ``istft`` opens the
+span ``ops.stft`` or ``ops.istft`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import span
 
 
 def hann_window(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -94,20 +97,21 @@ def _check_pad_mode(cfg: StftConfig) -> None:
 
 def stft(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     """STFT -> complex64 (n_bins, n_frames), on x's device."""
-    _check_pad_mode(cfg)
-    x = x.to(torch.float32)
-    win = hann_window(cfg.n_fft, x.device)
-    if cfg.pad_mode == "reflect" and x.shape[0] <= cfg.n_fft // 2:
-        # a signal no longer than the centre pad (Griffin-Lim on a few frames)
-        z = torch.stft(_pad_reflect_repeated(x, cfg.n_fft // 2), cfg.n_fft,
-                       cfg.hop, window=win, center=False, return_complex=True)
-    elif cfg.pad_mode == "reflect":
-        z = torch.stft(x, cfg.n_fft, cfg.hop, window=win, center=True,
-                       pad_mode="reflect", return_complex=True)
-    else:
-        z = torch.stft(_pad_zeros(x, cfg), cfg.n_fft, cfg.hop, window=win,
-                       center=False, return_complex=True)
-    return z * cfg.scale
+    with span("ops.stft"):
+        _check_pad_mode(cfg)
+        x = x.to(torch.float32)
+        win = hann_window(cfg.n_fft, x.device)
+        if cfg.pad_mode == "reflect" and x.shape[0] <= cfg.n_fft // 2:
+            # a signal no longer than the centre pad (Griffin-Lim on a few frames)
+            z = torch.stft(_pad_reflect_repeated(x, cfg.n_fft // 2), cfg.n_fft,
+                           cfg.hop, window=win, center=False, return_complex=True)
+        elif cfg.pad_mode == "reflect":
+            z = torch.stft(x, cfg.n_fft, cfg.hop, window=win, center=True,
+                           pad_mode="reflect", return_complex=True)
+        else:
+            z = torch.stft(_pad_zeros(x, cfg), cfg.n_fft, cfg.hop, window=win,
+                           center=False, return_complex=True)
+        return z * cfg.scale
 
 
 def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
@@ -144,20 +148,21 @@ def istft(z: torch.Tensor, cfg: StftConfig, length: int) -> torch.Tensor:
     (pad_mode='reflect'): windowed overlap-add normalized by the OLA of the
     squared window, then boundary trim + cut to ``length``.
     """
-    _check_pad_mode(cfg)
-    z = z / cfg.scale
-    win = hann_window(cfg.n_fft, z.device)
-    if cfg.pad_mode == "reflect":
-        return torch.istft(z, cfg.n_fft, cfg.hop, window=win, center=True,
-                           length=length)
-    frames = torch.fft.irfft(z.T, n=cfg.n_fft, dim=-1)
-    num = overlap_add(frames * win[None, :], cfg.hop)
-    den = overlap_add((win * win).expand_as(frames), cfg.hop)
-    sig = num / torch.where(den > 1e-11, den, torch.ones_like(den))
-    sig = sig[cfg.n_fft // 2:]
-    if sig.shape[0] >= length:
-        return sig[:length]
-    return F.pad(sig, (0, length - sig.shape[0]))
+    with span("ops.istft"):
+        _check_pad_mode(cfg)
+        z = z / cfg.scale
+        win = hann_window(cfg.n_fft, z.device)
+        if cfg.pad_mode == "reflect":
+            return torch.istft(z, cfg.n_fft, cfg.hop, window=win, center=True,
+                               length=length)
+        frames = torch.fft.irfft(z.T, n=cfg.n_fft, dim=-1)
+        num = overlap_add(frames * win[None, :], cfg.hop)
+        den = overlap_add((win * win).expand_as(frames), cfg.hop)
+        sig = num / torch.where(den > 1e-11, den, torch.ones_like(den))
+        sig = sig[cfg.n_fft // 2:]
+        if sig.shape[0] >= length:
+            return sig[:length]
+        return F.pad(sig, (0, length - sig.shape[0]))
 
 
 def magphase(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

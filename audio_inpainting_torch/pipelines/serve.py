@@ -40,6 +40,7 @@ from ..io import load_mono_normalized, save_wav_int16
 from ..ops import istft, magphase, polar, stft, torch_stft_config
 from ..parallel.batch import clip_seed
 from ..parallel.mesh import Ranks, gather_objects, launch, pad_repeat_last, shard_range
+from ..utils.profiling import span
 
 _CFG = torch_stft_config(1024, 256)
 
@@ -219,65 +220,67 @@ def serve_ranks(ranks: Ranks, input_dir: str, output_dir: str, method: str = "un
 def _restore_batch(clips, orig_clips, method: str, epochs: int, seed: int,
                    ranks: Ranks) -> np.ndarray:
     """The unet or gan batch over every clip, split over ``ranks``: the
-    restored magnitudes (G, F4, T_pad) on the host."""
-    from ..methods.neural import GANTrainConfig, UNetTrainConfig
-    from ..parallel import restore_clips_gan, restore_clips_unet
+    restored magnitudes (G, F4, T_pad) on the host; one ``serve.batch``
+    span (utils/profiling.py) with its ``method`` and ``clips``."""
+    with span("serve.batch", method=method, clips=len(clips)):
+        from ..methods.neural import GANTrainConfig, UNetTrainConfig
+        from ..parallel import restore_clips_gan, restore_clips_unet
 
-    f = clips[0][2].shape[0]
-    g = len(clips)
-    # frame count: the batch's max, padded to the models' T % 32
-    t_max = max(c[2].shape[1] for c in clips)
-    t_pad = t_max + ((-t_max) % 32)
-    mags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in clips])
-    col_keep = np.stack(
-        [np.pad(~c[4], (0, t_pad - len(c[4])), constant_values=True)
-         for c in clips]).astype(np.float32)          # 1 = kept
-    masks = np.broadcast_to(col_keep[:, None, :], mags.shape).copy()
-    fpad = (-f) % 4
-    if fpad:
-        mags = np.pad(mags, ((0, 0), (0, fpad), (0, 0)))
-        masks = np.pad(masks, ((0, 0), (0, fpad), (0, 0)), constant_values=1.0)
-    # the ranks' divisor: repeat the last clip, drop its outputs (the
-    # copies' seeds follow on, clip_seed(seed, i) for i >= g; the real
-    # clips keep theirs)
-    rows = pad_repeat_last(g, ranks.n_dp)
+        f = clips[0][2].shape[0]
+        g = len(clips)
+        # frame count: the batch's max, padded to the models' T % 32
+        t_max = max(c[2].shape[1] for c in clips)
+        t_pad = t_max + ((-t_max) % 32)
+        mags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in clips])
+        col_keep = np.stack(
+            [np.pad(~c[4], (0, t_pad - len(c[4])), constant_values=True)
+             for c in clips]).astype(np.float32)          # 1 = kept
+        masks = np.broadcast_to(col_keep[:, None, :], mags.shape).copy()
+        fpad = (-f) % 4
+        if fpad:
+            mags = np.pad(mags, ((0, 0), (0, fpad), (0, 0)))
+            masks = np.pad(masks, ((0, 0), (0, fpad), (0, 0)), constant_values=1.0)
+        # the ranks' divisor: repeat the last clip, drop its outputs (the
+        # copies' seeds follow on, clip_seed(seed, i) for i >= g; the real
+        # clips keep theirs)
+        rows = pad_repeat_last(g, ranks.n_dp)
 
-    if method == "unet":
-        peak = np.maximum(mags.max(axis=(1, 2), keepdims=True), 1e-12)
-        norm = (mags / peak).astype(np.float32)
-        # Train on SYNTHETIC frame dropouts over the intact content
-        # (reference main5_UNet_mask.py:111-127 semantics: the net learns to
-        # fill columns from context), then composite over the REAL damage.
-        # Training directly against the detected-damage mask would teach
-        # the net that holes contain silence: its targets there ARE the
-        # damaged (silent) columns.
-        syn = _synthetic_train_masks(seed, clips, masks)
-        train_mask = (masks * syn).astype(np.float32)  # real damage AND syn
-        # loss only where content is real: synthetic holes inside intact,
-        # true-extent cells (real holes have no target and stay out)
-        valid = _true_extent_mask(norm.shape, f, clips) * masks
-        out, _ = restore_clips_unet(
-            norm[rows, ..., None], train_mask[rows, ..., None],
-            UNetTrainConfig(epochs=epochs), seed, valid_batch=valid[rows, ..., None],
-            composite_mask_batch=masks[rows, ..., None], ranks=ranks)
-        return out[:g, ..., 0].cpu().numpy() * peak
-    rmags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in orig_clips])
-    if fpad:
-        rmags = np.pad(rmags, ((0, 0), (0, fpad), (0, 0)))
-    lo = mags.min(axis=(1, 2), keepdims=True)
-    hi = np.maximum(mags.max(axis=(1, 2), keepdims=True), lo + 1e-12)
-    norm = (2 * (mags - lo) / (hi - lo) - 1).astype(np.float32)
-    rnorm = (2 * (rmags - lo) / (hi - lo) - 1).astype(np.float32)
-    # each clip's true (f, t_i) extent: pad cells must not enter the L1
-    # reconstruction term
-    valid = _true_extent_mask(norm.shape, f, clips)
-    # the readout policy of Part 2's GAN leg (gap-scoped weight EMA and
-    # the collapse retry); the 0.04 collapse signature is calibrated at
-    # convergence, so the retry only arms at the full budget
-    cfg = GANTrainConfig(epochs=epochs, bf16=True, ema_decay=0.99, ema_scope="gap",
-                         retry_l1=0.04 if epochs >= 1500 else 0.0)
-    # the copies never gate the retry
-    pads = {"n_real": g} if len(rows) > g else {}
-    out, _ = restore_clips_gan(norm[rows], rnorm[rows], masks[rows], cfg, seed,
-                               valid_batch=valid[rows], ranks=ranks, **pads)
-    return (out[:g].cpu().numpy() + 1) / 2 * (hi - lo) + lo
+        if method == "unet":
+            peak = np.maximum(mags.max(axis=(1, 2), keepdims=True), 1e-12)
+            norm = (mags / peak).astype(np.float32)
+            # Train on SYNTHETIC frame dropouts over the intact content
+            # (reference main5_UNet_mask.py:111-127 semantics: the net learns to
+            # fill columns from context), then composite over the REAL damage.
+            # Training directly against the detected-damage mask would teach
+            # the net that holes contain silence: its targets there ARE the
+            # damaged (silent) columns.
+            syn = _synthetic_train_masks(seed, clips, masks)
+            train_mask = (masks * syn).astype(np.float32)  # real damage AND syn
+            # loss only where content is real: synthetic holes inside intact,
+            # true-extent cells (real holes have no target and stay out)
+            valid = _true_extent_mask(norm.shape, f, clips) * masks
+            out, _ = restore_clips_unet(
+                norm[rows, ..., None], train_mask[rows, ..., None],
+                UNetTrainConfig(epochs=epochs), seed, valid_batch=valid[rows, ..., None],
+                composite_mask_batch=masks[rows, ..., None], ranks=ranks)
+            return out[:g, ..., 0].cpu().numpy() * peak
+        rmags = np.stack([_pad_to(c[2], t_pad, 0.0) for c in orig_clips])
+        if fpad:
+            rmags = np.pad(rmags, ((0, 0), (0, fpad), (0, 0)))
+        lo = mags.min(axis=(1, 2), keepdims=True)
+        hi = np.maximum(mags.max(axis=(1, 2), keepdims=True), lo + 1e-12)
+        norm = (2 * (mags - lo) / (hi - lo) - 1).astype(np.float32)
+        rnorm = (2 * (rmags - lo) / (hi - lo) - 1).astype(np.float32)
+        # each clip's true (f, t_i) extent: pad cells must not enter the L1
+        # reconstruction term
+        valid = _true_extent_mask(norm.shape, f, clips)
+        # the readout policy of Part 2's GAN leg (gap-scoped weight EMA and
+        # the collapse retry); the 0.04 collapse signature is calibrated at
+        # convergence, so the retry only arms at the full budget
+        cfg = GANTrainConfig(epochs=epochs, bf16=True, ema_decay=0.99, ema_scope="gap",
+                             retry_l1=0.04 if epochs >= 1500 else 0.0)
+        # the copies never gate the retry
+        pads = {"n_real": g} if len(rows) > g else {}
+        out, _ = restore_clips_gan(norm[rows], rnorm[rows], masks[rows], cfg, seed,
+                                   valid_batch=valid[rows], ranks=ranks, **pads)
+        return (out[:g].cpu().numpy() + 1) / 2 * (hi - lo) + lo

@@ -17,10 +17,14 @@ suffixes collapse (``void k<float, 4>(float*)`` -> ``void k<>()``), as
 ``fusion.123`` -> ``fusion`` does in the JAX tool. It prints the top-K
 rows with their ms, share and count, the total, and the device's busy
 share of the traced window (``busy_share``: the union of the device
-intervals, since kernels on several streams may overlap), and how many of
-the traced launches have no device record (``unrecorded``): a session can
-lose the records of its first launches, and its device time then falls
-short by theirs.
+intervals, since kernels on several streams may overlap); then the
+device's idle ms in that window by the innermost of the port's spans
+(``utils.profiling.PORT_SPANS``: a trainer's build, epoch or readout, an
+entry point's request, a transform) that the host was in at each idle
+gap's middle (``idle_by_span``, read from the spans' ``record_function``
+ranges in the trace); and how many of the traced launches have no device
+record (``unrecorded``): a session can lose the records of its first
+launches, and its device time then falls short by theirs.
 """
 
 from __future__ import annotations
@@ -32,12 +36,13 @@ import json
 import os
 import re
 
-from ..utils.profiling import PRIMING
+from ..utils.profiling import PORT_SPANS, PRIMING
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # the runtime and driver calls that queue device work
 LAUNCH_CALLS = re.compile(r"Launch\w*Kernel|Memcpy|Memset")
 _TRACE_GLOBS = ("*.pt.trace.json", "*.pt.trace.json.gz")
+NO_SPAN = "(no port span)"
 
 
 def trace_file(path: str) -> str:
@@ -134,6 +139,41 @@ def busy_share(path: str) -> dict:
             "busy_share": busy / window if window else None}
 
 
+def idle_by_span(path: str) -> list[tuple[float, str]]:
+    """(ms, span name) of the device's idle time in the traced window (as
+    ``busy_share`` takes it), summed by the innermost port span whose
+    ``record_function`` range (``cat`` "user_annotation", a name in
+    PORT_SPANS) holds each idle gap's middle, NO_SPAN outside them; largest
+    first, empty where the trace has no device events or no port span. The
+    ranges nest, as the thread that opens them does."""
+    events = [e for e in load_events(path) if e.get("ph") == "X" and "dur" in e]
+    dev = device_events(events)
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] in PORT_SPANS)
+    if not dev or not ranges:
+        return []
+    gaps, prev = [], min(e["ts"] for e in events)
+    for s, e in sorted((d["ts"], d["ts"] + d["dur"]) for d in dev):
+        if s > prev:
+            gaps.append((prev, s))
+        prev = max(prev, e)
+    end = max(e["ts"] + e["dur"] for e in events)
+    if end > prev:
+        gaps.append((prev, end))
+    total: dict[str, float] = {}
+    open_, i = [], 0
+    for s, e in gaps:               # in order of their middles
+        mid = (s + e) / 2
+        while i < len(ranges) and ranges[i][0] <= mid:
+            open_.append(ranges[i])
+            i += 1
+        while open_ and open_[-1][1] < mid:
+            open_.pop()
+        name = open_[-1][2] if open_ else NO_SPAN
+        total[name] = total.get(name, 0.0) + (e - s) / 1e3
+    return sorted(((ms, n) for n, ms in total.items()), reverse=True)
+
+
 def unrecorded(path: str) -> dict:
     """The traced launches (the CUDA runtime or driver calls that queue a
     kernel, a copy or a memset) and how many of them no device event
@@ -163,6 +203,11 @@ def main(argv: list[str] | None = None) -> int:
     busy = busy_share(ns.trace)
     share = "n/a" if busy["busy_share"] is None else f"{100 * busy['busy_share']:.2f} %"
     print(f"busy {busy['busy_ms']:.3f} ms of a {busy['window_ms']:.3f} ms window ({share})")
+    idle = idle_by_span(ns.trace)
+    if idle:
+        print("device idle ms by the innermost port span the host was in:")
+        for ms, name in idle:
+            print(f"{ms:10.3f}  {name}")
     lost = unrecorded(ns.trace)
     if lost["unrecorded"]:
         print(f"{lost['unrecorded']} of {lost['launches']} launches have no device record: "

@@ -211,3 +211,51 @@ def test_main_prints_the_table(tmp_path, capsys):
     assert len(out) == 1 + 2 + 2                # header, 2 rows, total, busy
     assert out[3].split()[:2] == ["0.022", "100.00"]
     assert out[4].startswith("busy 0.017 ms of a 0.100 ms window (17.00 %)")
+
+
+SPANNED = [
+    {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 50.0, "dur": 10.0},
+    {"ph": "X", "cat": "user_annotation", "name": "api.restore", "ts": 85.0, "dur": 235.0},
+    {"ph": "X", "cat": "user_annotation", "name": "unet.epoch", "ts": 120.0, "dur": 80.0},
+    # not a port span, and a mirror over the device lanes: neither is read
+    {"ph": "X", "cat": "user_annotation", "name": "Optimizer.step#Adam.step", "ts": 125.0,
+     "dur": 15.0},
+    {"ph": "X", "cat": "gpu_user_annotation", "name": "ops.stft", "ts": 200.0, "dur": 120.0},
+    {"ph": "X", "cat": "kernel", "name": "k", "ts": 100.0, "dur": 10.0},
+    {"ph": "X", "cat": "kernel", "name": "k", "ts": 150.0, "dur": 10.0},
+    {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)", "ts": 300.0,
+     "dur": 10.0},
+]
+
+
+def test_idle_time_by_the_innermost_port_span(tmp_path, capsys):
+    """Idle gaps (the window 50 .. 320 less the device intervals): 50-100
+    before any span, 110-150 inside unet.epoch, 160-300 and 310-320 inside
+    api.restore alone."""
+    path = _write(tmp_path / "t.pt.trace.json", SPANNED)
+    assert tb.idle_by_span(path) == [(pytest.approx(0.15), "api.restore"),
+                                     (pytest.approx(0.05), tb.NO_SPAN),
+                                     (pytest.approx(0.04), "unet.epoch")]
+    assert tb.main([path]) == 0
+    out = capsys.readouterr().out.splitlines()
+    at = out.index("device idle ms by the innermost port span the host was in:")
+    assert out[at + 1].split() == ["0.150", "api.restore"]
+    # no device events, or no port span: no listing
+    assert tb.idle_by_span(_write(tmp_path / "u.pt.trace.json", SPANNED[:5])) == []
+    assert tb.idle_by_span(_write(tmp_path / "v.pt.trace.json", EVENTS)) == []
+
+
+def test_a_device_trace_shows_the_ports_spans(tmp_path):
+    """device_trace on the CPU: the trainer's spans appear as ranges of
+    their names; with no device events there is no idle listing."""
+    from audio_inpainting_torch.methods.neural import UNetTrainConfig, UNetTrainer
+
+    with device_trace(str(tmp_path / "trace")):
+        trainer = UNetTrainer(torch.rand(8, 32), torch.ones(8, 32), UNetTrainConfig(),
+                              device="cpu")
+        trainer.epoch()
+        trainer.restore()
+    ranges = {e["name"] for e in tb.load_events(str(tmp_path / "trace"))
+              if e.get("cat") == "user_annotation"}
+    assert {"unet.build", "unet.epoch", "unet.readout"} <= ranges
+    assert tb.idle_by_span(str(tmp_path / "trace")) == []
