@@ -5,7 +5,8 @@ It imports torch and numpy and nothing of JAX. Layering, as in the JAX
 package:
   io/        L0  WAV read/write, normalization, PNG rendering, the
                  waveform figures (matplotlib, where installed)
-  ops/       L1  STFT/iSTFT (torch.stft), the AR recurrence kernel wrapper
+  ops/       L1  STFT/iSTFT (torch.stft), the AR recurrence kernel wrapper,
+                 the train-mode BatchNorm + LeakyReLU kernels' wrapper
   corrupt/   L2  mask generators + blind damage detectors
   models/    L3  the spectrogram U-Net, GAN generator and discriminator,
                  the diffusion U-Net; models/sd/ Stable Diffusion v1 /

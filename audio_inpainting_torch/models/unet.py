@@ -36,10 +36,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_leaky import bn_leaky_train
+
 # BatchNorm running-average momentum of every BN of the models, flax's
 # convention: running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+# the negative slope of every LeakyReLU of the GAN's nets
+LEAKY_SLOPE = 0.2
 # flax's variance_scaling "truncated_normal": std of a unit normal cut at
 # +-2, by which the target std is divided
 _TRUNC_STD = 0.87962566103423978
@@ -79,15 +83,18 @@ class Conv(nn.Module):
                         groups=self.groups)
 
 
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over NCHW channels, always in fp32.
+class BNLeaky(nn.Module):
+    """flax ``nn.BatchNorm`` over NCHW channels, always in fp32, then the
+    LeakyReLU(LEAKY_SLOPE) that follows every BatchNorm of the GAN's nets:
+    the pair as one module, since the kernels compute them together.
 
     Train mode normalizes with the batch statistics and moves the running
     averages towards them by 1 - BN_MOMENTUM, with the *biased* batch
-    variance (nn.BatchNorm2d would take the unbiased one); eval mode
-    normalizes with the running averages. ``groups`` clips hold
-    ``channels`` each; with N = 1 every clip's channel has its own
-    statistics."""
+    variance (nn.BatchNorm2d would take the unbiased one): on a CUDA tensor
+    by the hand-written kernels of ``ops/bn_leaky.py``, elsewhere by plain
+    torch ops. Eval mode normalizes with the running averages. ``groups``
+    clips hold ``channels`` each; with N = 1 every clip's channel has its
+    own statistics."""
 
     def __init__(self, channels: int, groups: int = 1):
         super().__init__()
@@ -98,16 +105,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        x = x.to(torch.float32)
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, 1.0 - BN_MOMENTUM)
-            self.running_var.lerp_(var, 1.0 - BN_MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            BN_EPS)
+        if train:
+            return bn_leaky_train(x, self.weight, self.bias, self.running_mean,
+                                  self.running_var, BN_MOMENTUM, BN_EPS, LEAKY_SLOPE)
+        x = F.batch_norm(x.to(torch.float32), self.running_mean, self.running_var,
+                         self.weight, self.bias, False, 0.0, BN_EPS)
+        return F.leaky_relu(x, LEAKY_SLOPE)
 
 
 class ConvBlock(nn.Module):
@@ -128,13 +131,12 @@ class BNLeakyConvBlock(nn.Module):
     def __init__(self, cin: int, cout: int, dtype: torch.dtype, groups: int = 1):
         super().__init__()
         self.conv0 = Conv(cin, cout, 3, padding=1, dtype=dtype, groups=groups)
-        self.bn0 = BatchNorm(cout, groups)
+        self.bn0 = BNLeaky(cout, groups)
         self.conv1 = Conv(cout, cout, 3, padding=1, dtype=dtype, groups=groups)
-        self.bn1 = BatchNorm(cout, groups)
+        self.bn1 = BNLeaky(cout, groups)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        x = F.leaky_relu(self.bn0(self.conv0(x), train), 0.2)
-        return F.leaky_relu(self.bn1(self.conv1(x), train), 0.2)
+        return self.bn1(self.conv1(self.bn0(self.conv0(x), train)), train)
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -218,17 +220,16 @@ class Discriminator(nn.Module):
         g = groups
         self.conv0 = Conv(1, 16, 4, stride=2, padding=1, dtype=dtype, groups=g)
         self.conv1 = Conv(16, 32, 4, stride=2, padding=1, dtype=dtype, groups=g)
-        self.bn0 = BatchNorm(32, g)
+        self.bn0 = BNLeaky(32, g)
         self.conv2 = Conv(32, 64, 4, stride=2, padding=1, dtype=dtype, groups=g)
-        self.bn1 = BatchNorm(64, g)
+        self.bn1 = BNLeaky(64, g)
         self.conv3 = Conv(64, 1, 4, groups=g)
         init_flax_style(self, generator)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = F.leaky_relu(self.conv0(x), 0.2)
-        x = F.leaky_relu(self.bn0(self.conv1(x), train), 0.2)
-        x = F.leaky_relu(self.bn1(self.conv2(x), train), 0.2)
-        return self.conv3(x)
+        x = F.leaky_relu(self.conv0(x), LEAKY_SLOPE)
+        x = self.bn0(self.conv1(x), train)
+        return self.conv3(self.bn1(self.conv2(x), train))
 
 
 def patchgan_map_shape(f: int, t: int) -> tuple[int, int]:
@@ -256,10 +257,10 @@ def init_flax_style(model: nn.Module,
             nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             mod.bias.zero_()
-        elif isinstance(mod, (BatchNorm, nn.GroupNorm)):
+        elif isinstance(mod, (BNLeaky, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, BatchNorm):
+            if isinstance(mod, BNLeaky):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
     return model

@@ -5,9 +5,18 @@
     python3 chip_smoke.py multi      # phase multi alone, no result lines
     python3 chip_smoke.py prior      # phase prior alone, no result lines
     python3 chip_smoke.py tools      # phase tools alone, no result lines
+    python3 chip_smoke.py bn_leaky   # phase bn_leaky alone, no result lines
+    python3 chip_smoke.py gan_epoch  # the GAN epoch's host and device times
+                                     # alone; runs on a tree without the
+                                     # BatchNorm + LeakyReLU kernels too
 
-It builds the port's CUDA kernel from csrc/, holds it against its plain
-torch version at the shapes the restore path gives it, times both, then
+It builds the port's CUDA kernels from csrc/, holds the AR recurrence
+kernel against its plain torch version at the shapes the restore path
+gives it, times both, holds the GAN's train-mode BatchNorm + LeakyReLU
+kernels against their plain formulas in float64 at each site of Part 2's
+GAN and times them beside their bound, the plain formulas and the
+library's BatchNorm (phase ``bn_leaky``, with the GAN epoch's launches,
+device time and host enqueue), then
 drives the port's paths: the masked NMF at Part 1's and Part 0's shapes
 (GPU against CPU), the U-Net and GAN training loops (GPU against CPU on a
 cropped spectrogram, then epochs timed and profiled at Part 1's full
@@ -40,7 +49,9 @@ mesh, on two 60 s spectrograms; the per-clip U-Nets and GANs, the 60 s
 clip's AR window classes, GP restarts, the frame-parallel STFT and
 serve's rank body over the ranks, each against one rank; on two cards,
 the same on NCCL and run_serve(devices=2)). Each phase prints one JSON line;
-any failed check raises. The last three lines are the kernel table,
+any failed check raises; each GAN path counts the BatchNorm + LeakyReLU
+kernels' launches (the kernel table's ``launches_by_path``), and raises
+where it launched none. The last three lines are the kernel table,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -180,6 +191,19 @@ TOOLS_MFU_CALLS = 3
 TOOLS_SERVE_EPOCHS = 50
 TOOLS_STREAM_MINUTES = 0.5
 TRACE_BUSY_RTOL = 0.05         # trace_breakdown's busy time against device_profile's
+# the GAN's train-mode BatchNorm + LeakyReLU sites at (516, 1728): (C, H, W,
+# passes an epoch each way): the generator's blocks 0 and 4, 1 and 3, 2,
+# then D's bn0 and bn1 (three forwards, and six backwards over the two)
+BN_SITES = ((16, 516, 1728, 4), (32, 258, 864, 4), (64, 129, 432, 2),
+            (32, 129, 432, 3), (64, 64, 216, 3))
+# the kernels against their plain formulas in float64: statistics relative
+# (to the channel's spread for the mean), outputs of their peak, the
+# weight and bias gradients of the sum of |term| (tests/test_torch_bn_leaky_cuda.py)
+BN_RTOL = 1e-5
+BN_LAUNCHES_EPOCH = 64         # 16 passes each way, two launches a pass
+BN_EPOCHS = 20
+# the BatchNorm + LeakyReLU kernels' launches by path, filled by bn_counted
+BN_LAUNCHES: dict[str, int] = {}
 
 
 T0 = time.perf_counter()
@@ -321,15 +345,18 @@ def fitted_inputs(n_gaps, p, context_len, steps, dev, seed):
 def phase_env(dev):
     from audio_inpainting_torch.kernels import build
 
-    t0 = time.perf_counter()
-    so = build.build("ar_scan")
-    build_s = time.perf_counter() - t0
-    log = so.with_suffix(".log").read_text().splitlines()
+    builds = {}
+    for name in ("ar_scan", "bn_leaky"):
+        t0 = time.perf_counter()
+        so = build.build(name)
+        log = so.with_suffix(".log").read_text().splitlines()
+        builds[name] = {"build_s": time.perf_counter() - t0,
+                        "ptxas": [line.strip() for line in log if "Used" in line]}
     emit({"phase": "env", "gpu": gpu_name_and_power(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(dev),
-          "kernel_build_s": build_s,
-          "ptxas": [line.strip() for line in log if "Used" in line]})
+          "kernel_build_s": builds["ar_scan"]["build_s"],
+          "ptxas": builds["ar_scan"]["ptxas"], "bn_leaky": builds["bn_leaky"]})
 
 
 def phase_kernel(dev):
@@ -388,6 +415,219 @@ def phase_kernel(dev):
             "bound_ms": bms, "bound_by": bound_by})
     emit({"phase": "kernel", "shapes": rows})
     return rows
+
+
+@contextlib.contextmanager
+def bn_counted(path: str, epochs: int | None = None):
+    """BN_LAUNCHES[path]: the BatchNorm + LeakyReLU kernels' launches of
+    the GAN path run inside the block; raises where it launched none, or
+    where ``epochs`` is given and the count is not BN_LAUNCHES_EPOCH each
+    (0 for a path with no BatchNorm)."""
+    from audio_inpainting_torch.ops import bn_leaky
+
+    bn_leaky.LAUNCHES = 0
+    yield
+    torch.cuda.synchronize()
+    BN_LAUNCHES[path] = got = bn_leaky.LAUNCHES
+    want = None if epochs is None else BN_LAUNCHES_EPOCH * epochs
+    if (want is None and got <= 0) or (want is not None and got != want):
+        raise AssertionError(f"{path}: the BatchNorm + LeakyReLU kernels launched {got} "
+                             f"times, not {want if want is not None else 'once or more'}")
+
+
+def bn_site(c: int, h: int, w: int, dtype, dev, seed: int):
+    """Conv-output-like x (a mean and a spread a channel) at one site, the
+    affine and running averages of a trained BatchNorm, an output gradient."""
+    g = torch.Generator().manual_seed(seed)
+    loc = torch.randn(1, c, 1, 1, generator=g)
+    scale = 0.2 + torch.rand(1, c, 1, 1, generator=g) * 3
+    x = (torch.randn(1, c, h, w, generator=g) * scale + loc).to(dtype)
+    weight = 1.0 + 0.3 * torch.randn(c, generator=g)
+    bias = 0.2 * torch.randn(c, generator=g)
+    rm, rv = 0.1 * torch.randn(c, generator=g), 1.0 + torch.rand(c, generator=g)
+    dy = torch.randn(1, c, h, w, generator=g) * 1e-3
+    return [t.to(dev) for t in (x, weight, bias, rm, rv, dy)]
+
+
+def bn_errors(x, weight, bias, rm, rv, dy) -> dict:
+    """The kernels forward and backward against bn_leaky_forward_ref and
+    bn_leaky_backward_ref in float64, each error over its BN_RTOL scale
+    (a ratio <= 1 passes). The reference backward takes the output gradient
+    through the kernels' own LeakyReLU branch (slope 1 after it): where the
+    pre-activation is within rounding of 0, fp32 and float64 may take the
+    two sides of the kink."""
+    from audio_inpainting_torch.models.unet import BN_EPS, BN_MOMENTUM, LEAKY_SLOPE
+    from audio_inpainting_torch.ops import bn_leaky
+
+    step = 1.0 - BN_MOMENTUM
+    rm1, rv1 = rm.clone(), rv.clone()
+    y, mean, rstd = bn_leaky.bn_leaky_forward_cuda(x, weight, bias, rm1, rv1, step,
+                                                   BN_EPS, LEAKY_SLOPE)
+    dx, dw, db = bn_leaky.bn_leaky_backward_cuda(dy, x, weight, bias, mean, rstd,
+                                                 LEAKY_SLOPE)
+    x64, w64, b64 = x.double(), weight.double(), bias.double()
+    y64, mean64, rstd64 = bn_leaky.bn_leaky_forward_ref(x64, w64, b64, BN_EPS, LEAKY_SLOPE)
+    dz = torch.where(y > 0, dy.double(), dy.double() * LEAKY_SLOPE)
+    dx64, dw64, db64 = bn_leaky.bn_leaky_backward_ref(dz, x64, w64, b64, mean64, rstd64,
+                                                      1.0)
+    spread = 1.0 / rstd64
+    xhat = (x64 - mean64.view(1, -1, 1, 1)) * rstd64.view(1, -1, 1, 1)
+    want_rm = rm.double() + step * (mean64 - rm.double())
+    want_rv = rv.double() + step * ((spread ** 2 - BN_EPS) - rv.double())
+    # dx in bf16 is rounded once more than float64: half a step of 8 bits
+    half_step = 2.0 ** -8 if x.dtype == torch.bfloat16 else 0.0
+
+    def worst(err, scale):
+        return float((err.abs() / (BN_RTOL * scale)).max())
+
+    return {"y": worst(y.double() - y64, y64.abs().max()),
+            "mean": worst(mean.double() - mean64, spread),
+            "rstd": worst(rstd.double() - rstd64, rstd64),
+            "running_mean": worst(rm1.double() - want_rm, spread + want_rm.abs()),
+            "running_var": worst(rv1.double() - want_rv, want_rv),
+            "dx": float(((dx.double() - dx64).abs()
+                         / (half_step * dx64.abs() + BN_RTOL * dx64.abs().max())).max()),
+            "dweight": worst(dw.double() - dw64, (dz * xhat).abs().sum(dim=(0, 2, 3))),
+            "dbias": worst(db.double() - db64, dz.abs().sum(dim=(0, 2, 3)))}
+
+
+def bn_bound_ms(elements: int, itemsize: int) -> dict:
+    """HBM time of a forward and a backward at ``elements``: each input
+    read and each output written once (x in, fp32 y out; fp32 dy and x in,
+    dx out), and the two-pass kernels' own traffic, which reads x forward
+    and x and dy backward twice."""
+    once = (itemsize + 4) + (4 + 2 * itemsize)
+    two_pass = (2 * itemsize + 4) + (2 * (4 + itemsize) + itemsize)
+    hbm = roofline.H100_PEAKS["hbm"]
+    return {"bound_ms": elements * once / hbm * 1e3,
+            "bound_ms_two_pass": elements * two_pass / hbm * 1e3}
+
+
+def gan_epoch_host(dev) -> dict:
+    """The bf16 GAN epoch at Part 2's (513, 1723), as the cell trains it:
+    the host's time to enqueue one epoch with the device held back by a
+    sleep (the median of 10), the epoch back to back (CUDA events), and
+    the device's busy ms, calls and ten costliest kernels an epoch over
+    BN_EPOCHS profiled epochs, and the host's own op time an epoch (self
+    CPU time under a CPU-only profile of 10 epochs). Imports nothing of
+    the kernels, so it runs on a tree without them too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_inpainting_torch.methods import neural
+
+    mag_norm, mask = part1_spectrogram()
+    trainer = neural.GANTrainer(*gan_inputs(mag_norm.to(dev), mask.to(dev)),
+                                neural.GANTrainConfig(bf16=True, ema_decay=0.99,
+                                                      ema_scope="gap"), 0)
+    for _ in range(3):
+        trainer.epoch()
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)           # about 0.1 s at ~2 GHz
+        t0 = time.perf_counter()
+        trainer.epoch()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    loop_ms = cuda_ms(trainer.epoch, calls=20, rounds=3, warmup=0)
+    prof = device_profile(lambda: [trainer.epoch() for _ in range(BN_EPOCHS)], top=400,
+                          kernel="bn_leaky")
+    with profile(activities=[ProfilerActivity.CPU]) as cpu:
+        for _ in range(10):
+            trainer.epoch()
+        torch.cuda.synchronize()
+    ops = sorted(cpu.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    return {"trainer": trainer, "host_enqueue_ms": float(np.median(host)),
+            "host_enqueue_ms_range": [min(host), max(host)], "loop_ms": loop_ms,
+            "host_ops_ms": sum(r.self_cpu_time_total for r in ops) / 10 / 1e3,
+            "host_ops_top": [{"name": r.key[:60], "calls": r.count / 10,
+                              "self_ms": r.self_cpu_time_total / 10 / 1e3} for r in ops[:8]],
+            "device_busy_ms": prof["device_busy_ms"] / BN_EPOCHS,
+            "device_calls": prof["device_calls"] / BN_EPOCHS,
+            "bn_leaky_device_ms": prof["kernel_device_ms"] / BN_EPOCHS,
+            "names": [r["name"] for r in prof["top"]],
+            "top": [{**r, "calls": r["calls"] / BN_EPOCHS,
+                     "device_ms": r["device_ms"] / BN_EPOCHS} for r in prof["top"][:10]]}
+
+
+def phase_bn_leaky(dev) -> dict:
+    """The GAN's train-mode BatchNorm + LeakyReLU kernels (csrc/bn_leaky.cu)
+    at each BN_SITES shape in bf16 (the cell's) and fp32: held against
+    their plain formulas in float64 (bn_errors), and in bf16 timed back to
+    back beside their bound, the plain formulas on the card and the
+    library (F.batch_norm in training + F.leaky_relu on the fp32 cast, by
+    autograd: cuDNN's bn_fw_tr_1C11 and bn_bw_1C11, which the port no
+    longer calls); then the GAN epoch (gan_epoch_host): BN_LAUNCHES_EPOCH
+    launches an epoch, no library BatchNorm, the host's enqueue. Returns
+    the kernels line's row."""
+    import torch.nn.functional as F
+
+    from audio_inpainting_torch.models.unet import BN_EPS, BN_MOMENTUM, LEAKY_SLOPE
+    from audio_inpainting_torch.ops import bn_leaky
+
+    step = 1.0 - BN_MOMENTUM
+    rows, epoch = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                       "bound_ms_two_pass": 0.0}
+    for i, (c, h, w, passes) in enumerate(BN_SITES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, weight, bias, rm, rv, dy = bn_site(c, h, w, dtype, dev, seed=i)
+            errs = bn_errors(x, weight, bias, rm, rv, dy)
+            bad = {k: v for k, v in errs.items() if not v <= 1.0}
+            if bad:
+                raise AssertionError(f"bn_leaky at {(c, h, w)} {dtype}: errors over "
+                                     f"their tolerance (ratio > 1): {bad}")
+            row = {"C": c, "H": h, "W": w, "dtype": str(dtype).split(".")[1],
+                   "passes_an_epoch": passes, "err_over_tol": errs}
+            if dtype == torch.bfloat16:
+                y, mean, rstd = bn_leaky.bn_leaky_forward_cuda(x, weight, bias, rm, rv, step,
+                                                               BN_EPS, LEAKY_SLOPE)
+                xr = x.detach().clone().requires_grad_()
+                wr, br = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+
+                def library():
+                    out = F.leaky_relu(F.batch_norm(xr.float(), None, None, wr, br, True,
+                                                    0.0, BN_EPS), LEAKY_SLOPE)
+                    torch.autograd.grad(out, (xr, wr, br), dy)
+
+                row.update({
+                    "fwd_ms": cuda_ms(lambda: bn_leaky.bn_leaky_forward_cuda(
+                        x, weight, bias, rm, rv, step, BN_EPS, LEAKY_SLOPE), calls=20),
+                    "bwd_ms": cuda_ms(lambda: bn_leaky.bn_leaky_backward_cuda(
+                        dy, x, weight, bias, mean, rstd, LEAKY_SLOPE), calls=20),
+                    "plain_ms": cuda_ms(lambda: bn_leaky.bn_leaky_backward_ref(
+                        dy, x, weight, bias, *bn_leaky.bn_leaky_forward_ref(
+                            x, weight, bias, BN_EPS, LEAKY_SLOPE)[1:], LEAKY_SLOPE),
+                        calls=5),
+                    "library_ms": cuda_ms(library, calls=5),
+                    **bn_bound_ms(c * h * w, x.element_size())})
+                row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+                for k in epoch:
+                    epoch[k] += passes * row[k]
+            rows.append(row)
+
+    res = gan_epoch_host(dev)
+    trainer = res.pop("trainer")
+    with bn_counted("epoch", epochs=BN_EPOCHS):
+        for _ in range(BN_EPOCHS):
+            trainer.epoch()
+    library = [n for n in res.pop("names") if "bn_fw" in n or "bn_bw" in n]
+    if library:
+        raise AssertionError(f"the GAN epoch launched the library's BatchNorm: {library}")
+    emit({"phase": "bn_leaky", "shapes": rows, "epoch_sites": epoch, "gan_epoch": res,
+          "tolerance": f"kernels against their plain formulas in float64: {BN_RTOL:g} "
+                       "(statistics relative, outputs of peak, sums of sum |term|), "
+                       "bf16 dx half a step more"})
+    return {"name": "bn_leaky", "route": "cuda",
+            "source": "audio_inpainting_torch/csrc/bn_leaky.cu",
+            "replaces": None, "launches": BN_LAUNCHES_EPOCH,
+            "max_err_over_tol": max(v for r in rows for v in r["err_over_tol"].values()),
+            **epoch, "bound_by": "bytes",
+            "ms_in_epoch": res["bn_leaky_device_ms"],
+            "shape": [1, *BN_SITES[0][:3]],
+            "shapes": [{k: r[k] for k in ("C", "H", "W", "passes_an_epoch", "fwd_ms",
+                                          "bwd_ms", "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_ms_two_pass")}
+                       for r in rows if "ms" in r]}
 
 
 def damaged_clip(tmp: Path):
@@ -1050,7 +1290,8 @@ def facade_neural(clean, damaged) -> dict:
                        ("gan", {"epochs": FACADE_GAN_EPOCHS, "original": clean})):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got[method] = restore(damaged, SR, method=method, **kw)
+        with bn_counted(f"facade_{method}", epochs=0 if method == "unet" else None):
+            got[method] = restore(damaged, SR, method=method, **kw)
         wall_s = time.perf_counter() - t0
         if got[method].shape != damaged.shape or not np.isfinite(got[method]).all():
             raise AssertionError(f"{method} facade output has the wrong shape "
@@ -1226,8 +1467,9 @@ def phase_neural(dev):
     g_final, _, g_loss = neural.unet_train_restore(m, k, ucfg, 0, device=dev)
     c_final, _, c_loss = neural.unet_train_restore(m, k, ucfg, 0, device="cpu")
     gcfg = neural.GANTrainConfig(epochs=5, ema_decay=0.99)
-    gg_final, (gg_d, gg_g), _ = neural.gan_train_restore(*gan_inputs(m, k), gcfg, 0,
-                                                         device=dev)
+    with bn_counted("neural", epochs=gcfg.epochs):
+        gg_final, (gg_d, gg_g), _ = neural.gan_train_restore(*gan_inputs(m, k), gcfg, 0,
+                                                             device=dev)
     cg_final, (cg_d, cg_g), _ = neural.gan_train_restore(*gan_inputs(m, k), gcfg, 0,
                                                          device="cpu")
     vs_cpu = {"shape": list(m.shape), "epochs": 5, "dtype": "fp32, TF32 off",
@@ -1410,7 +1652,8 @@ def phase_pipelines(dev, tmp: Path):
     ar_scan.LAUNCHES = 0
     t0 = time.perf_counter()
     # 1500 GAN epochs, retry armed
-    part2 = run_part2(clip, assets, seed=0, diffusion_params=prior)
+    with bn_counted("part2"):
+        part2 = run_part2(clip, assets, seed=0, diffusion_params=prior)
     part2_s = time.perf_counter() - t0
     part2_launches = ar_scan.LAUNCHES
     check_artifacts(assets, "part2", ["damaged", "original", "linear", "ar", "nmf", "gan",
@@ -2106,9 +2349,10 @@ def serve_gan(dev, din: Path, dclean: Path, tmp: Path) -> dict:
     parallel.restore_clips_gan = keep
     torch.cuda.reset_peak_memory_stats()
     try:
-        res, wall_s = timed(lambda: run_serve(
-            str(din), str(tmp / "serve_gan"), method="gan", epochs=SERVE_GAN_EPOCHS,
-            originals_dir=str(dclean)))
+        with bn_counted("serve_gan"):
+            res, wall_s = timed(lambda: run_serve(
+                str(din), str(tmp / "serve_gan"), method="gan", epochs=SERVE_GAN_EPOCHS,
+                originals_dir=str(dclean)))
     finally:
         parallel.restore_clips_gan = real
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2480,9 +2724,13 @@ def multi_clips(ranks, lead: bool) -> dict:
         return restore_clips_gan(inp[r], real[r], msk[r], cfg, [seeds[i] for i in r],
                                  device=dev)[0]
 
+    from audio_inpainting_torch.ops import bn_leaky
+
     res = {}
     uout, res["unet_wall_s"] = timed(lambda: unet(MULTI_UNET_EPOCHS))
+    bn_leaky.LAUNCHES = 0
     gout, res["gan_wall_s"] = timed(lambda: gan(MULTI_GAN_EPOCHS, True))
+    res["bn_leaky_launches"] = bn_leaky.LAUNCHES
     uheld, gheld = unet(UNET_HELD_EPOCHS), gan(GAN_HELD_EPOCHS, False)
     if lead:
         res["unet_vs_ranks_batches_err"] = rel_err(uout, ranks_batches(
@@ -2720,6 +2968,8 @@ def multi_rank(ranks, tmp: str, modes: tuple[str, ...]) -> dict:
     launches = {k: res[k]["launches"] for k in ("windows", "serve") if k in res}
     res.update(ready_by_rank=gather_objects(ready, ranks),
                launches_by_rank=gather_objects(launches, ranks),
+               bn_launches_by_rank=gather_objects(
+                   res["clips"]["bn_leaky_launches"] if "clips" in res else 0, ranks),
                peak_gb_by_rank=gather_objects(
                    torch.cuda.max_memory_allocated(ranks.device) / 1e9, ranks))
     calls = {k: res[k].pop("calls") for k in launches}
@@ -2828,6 +3078,9 @@ def phase_multi(dev, tmp: Path, clip):
         nccl = multi_cards(mdir, every)
     else:
         print("multi: the multi-card NCCL path was not run on 1 card", flush=True)
+    if not all(n > 0 for n in two["bn_launches_by_rank"]):
+        raise AssertionError("multi: a rank's GANs launched no BatchNorm + LeakyReLU "
+                             f"kernel: {two['bn_launches_by_rank']}")
     launches = sum(sum(c.values()) for c in two["launches_by_rank"])
     rows = two.pop("kernel_rows")
     emit({"phase": "multi", "wall_s": time.perf_counter() - t0,
@@ -2838,7 +3091,7 @@ def phase_multi(dev, tmp: Path, clip):
                        f"against one rank: losses {RANKS_ATOL:g}, GP {GP_RANKS_ATOL:g}, "
                        f"the batch-against-single and windowed bounds",
           "kernels": rows})
-    return {"multi": launches}, rows
+    return {"multi": launches}, rows, sum(two["bn_launches_by_rank"])
 
 
 def multi_cards(mdir: Path, every: tuple[str, ...]) -> dict:
@@ -2865,10 +3118,17 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    if argv == ["gan_epoch"]:      # the GAN epoch's host and device alone, on any tree
+        res = gan_epoch_host(dev)
+        del res["trainer"], res["names"]
+        emit({"phase": "gan_epoch", "gpu": gpu_name_and_power(), **res})
+        return 0
     phase_env(dev)
-    if argv in (["multi"], ["prior"], ["tools"]):   # one phase alone, for work on it
+    if argv in (["multi"], ["prior"], ["tools"], ["bn_leaky"]):   # one phase alone
         with tempfile.TemporaryDirectory() as tmp:
-            if argv == ["multi"]:
+            if argv == ["bn_leaky"]:
+                phase_bn_leaky(dev)
+            elif argv == ["multi"]:
                 phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
             elif argv == ["tools"]:
                 phase_tools(dev, Path(tmp))
@@ -2877,6 +3137,7 @@ def main(argv: list[str]) -> int:
         print(gpu_name_and_power(), flush=True)
         return 0
     rows = phase_kernel(dev)
+    bn_row = phase_bn_leaky(dev)
     phase_nmf(dev)
     phase_neural(dev)
     phase_diffusion(dev)
@@ -2898,7 +3159,7 @@ def main(argv: list[str]) -> int:
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
         by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
-        multi_launches, multi_rows = phase_multi(dev, Path(tmp), clip)
+        multi_launches, multi_rows, multi_bn = phase_multi(dev, Path(tmp), clip)
         by_path.update(multi_launches)
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
               + bench_rows + tools_rows + serve_rows + multi_rows)
@@ -2917,7 +3178,8 @@ def main(argv: list[str]) -> int:
                     **{k: r[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
                                          "chunked_ms", "max_abs_err",
                                          "agreement_snr_db")}}
-                   for r in fitted]}]})
+                   for r in fitted]},
+        {**bn_row, "launches_by_path": {**BN_LAUNCHES, "multi": multi_bn}}]})
     print(gpu_name_and_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from audio_inpainting_tpu.models import packed_unet as jpacked
 from audio_inpainting_tpu.models import unet as junet
 from audio_inpainting_torch.convert import flax_to_state_dict
 from audio_inpainting_torch.corrupt import frame_gap_mask_2d, training_stripes
-from audio_inpainting_torch.models import (BatchNorm, Discriminator, GeneratorUNet,
+from audio_inpainting_torch.models import (BNLeaky, Discriminator, GeneratorUNet,
                                            SimpleUNet, init_flax_style,
                                            pad_to_multiple, patchgan_map_shape)
 from audio_inpainting_torch.models.unet import Conv
@@ -136,7 +136,7 @@ def test_batchnorm_running_var_is_biased():
     _, upd = layer.apply(v, jnp.asarray(x), mutable=["batch_stats"])
     want_var = np.asarray(upd["batch_stats"]["var"])
     want_mean = np.asarray(upd["batch_stats"]["mean"])
-    bn = BatchNorm(3)
+    bn = BNLeaky(3)
     bn(_nchw(x), True)
     np.testing.assert_allclose(bn.running_var.numpy(), want_var, atol=STATS_ATOL, rtol=0)
     np.testing.assert_allclose(bn.running_mean.numpy(), want_mean, atol=STATS_ATOL, rtol=0)
