@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The control of a cell's correctness check: the reference, put in the
 port's place and computed in the precision below the configuration's
-(TF32 for float32 with TF32 off, float8 e4m3 operands for bfloat16),
-held to the reference as a run holds the port.
+(the ``control`` of the check that the configuration names; training:
+TF32 for float32 with TF32 off, float8 e4m3 operands for bfloat16), held
+to the reference as a run holds the port (that check's ``compare``).
 
     python3 benchmark/control.py --workload <cell> --seeds <n> [<n> ...] [--epochs 3]
 
-For each seed it prints one JSON line: the numbers of ``check.NUMBERS``,
-where each read its worst, and the cell's limits. A limit is sound only
-where the control reads over it. The benchmark's own runs never run
-this; it needs a GPU (the tests call ``readings`` on the CPU).
+For each seed it prints one JSON line: the numbers of the check's
+``NUMBERS``, where each read its worst, and the cell's limits. A limit is
+sound only where the control reads over it. The benchmark's own runs
+never run this; it needs a GPU (the tests call ``readings`` on the CPU).
 """
 
 from __future__ import annotations
@@ -25,15 +26,16 @@ if ROOT not in sys.path:
 
 import torch  # noqa: E402
 
-from benchmark import check, gen, manifest  # noqa: E402
+from benchmark import gen, manifest  # noqa: E402
 
 
 def readings(cell, seed: int, device, epochs: int = 3) -> tuple[dict, dict]:
     """(numbers, where) of the control on the cell's first request of
     ``seed``, at the cell's own sizes."""
+    kind = manifest.check(ROOT, cell.config)
     req = gen.make_request(cell.traffic, cell.config, seed, 0)
-    start, steps, answers = check.control(cell.config, cell.traffic, req, device, epochs)
-    return check.compare(cell.config, cell.traffic, start, steps, answers, device)
+    start, steps, answers = kind.control(cell.config, cell.traffic, req, device, epochs)
+    return kind.compare(cell.config, cell.traffic, start, steps, answers, device)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,14 +1,20 @@
 """What every driver shares: a request's job (``epoch``, ``finish``) and the
-reading of its training state for the correctness check.
+reading of its state for the correctness check.
 
 A driver (``drivers/<kind>.py``, named by a configuration's ``driver``)
 exports ``Driver``; ``Driver(config, traffic, device, span).start(req)``
-analyses a ``gen.Request`` and builds its trainer, as the entry point
-named by ``traffic["entry"]`` does, and returns a ``Job``. The harness
-calls ``job.epoch()`` until ``traffic["epochs"]``, then
+analyses a ``gen.Request`` and builds its trainer or sampler, as the
+entry point named by ``traffic["entry"]`` does, and returns a ``Job``.
+The harness calls ``job.epoch()``, one step (a training epoch, or one
+denoising evaluation), until ``traffic["epochs"]`` steps, then
 ``job.finish()`` (the readout and the synthesis back to audio). ``span``
 wraps each stage (``analysis``, ``trainer_build``, ``readout``,
 ``synthesis``) in a profiler range when the run is traced.
+
+``job.losses`` and ``job.states`` give what the configuration's check
+(``checks/<kind>.py``) reads: a step's return on the host, and each
+clip's state. The defaults here are the training kind's: losses, and
+weights with Adam's state; a job of another kind gives its own.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ class Job:
         self.trainer = None
 
     def epoch(self):
-        """One training epoch; returns what the port's epoch returns."""
+        """One step; returns what the port's step returns."""
         raise NotImplementedError
 
     def finish(self) -> np.ndarray:
@@ -48,10 +54,11 @@ class Job:
         return np.stack([p.detach().double().cpu().reshape(-1).numpy() for p in parts], axis=1)
 
     def states(self, clone: bool = True) -> list[dict]:
-        """The training state of each clip in the reference's form (see
-        reference/nets.py): the grouped tensors split by clip on their
-        first axis, Adam's moments (zeros before the first step) and step
-        count. ``clone``: copies, else views of the live tensors."""
+        """The state of each clip that the check reads; here the training
+        state in the reference's form (see reference/nets.py): the grouped
+        tensors split by clip on their first axis, Adam's moments (zeros
+        before the first step) and step count. ``clone``: copies, else
+        views of the live tensors."""
         g = self.clips
         out = [{"params": {}, "buffers": {}, "m": {}, "v": {}, "step": 0, "ema": None}
                for _ in range(g)]

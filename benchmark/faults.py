@@ -1,22 +1,20 @@
-"""Faults planted in the port underneath the timed path, each a context
-manager that patches the port while it is open. The check must come out
-not correct under each fault a cell can have; the tests plant them at a
-small size on the CPU, and ``python3 benchmark/faults.py`` reads their
-numbers at the cell's own size. The benchmark's runs plant none.
+#!/usr/bin/env python3
+"""The check's numbers under each fault that a cell's kind of check plants
+underneath the timed path (the ``FAULTS`` of ``checks/<kind>.py``, each a
+context manager that patches the port while it is open). The check must
+come out not correct under each fault a cell can have; the tests plant
+them at a small size on the CPU, and
 
-- ``unchanged``: every optimizer step returns the state it was given;
-- ``half_batch``: the second half of every clip's frames leaves the
-  training loss, whose mean is taken over the rest;
-- ``altered_answer``: each readout's composite comes out scaled by 0.9
-  where it is produced.
+    python3 benchmark/faults.py --workload <cell> --seeds <n> [<n> ...] [--seconds 5] [--faults ...]
 
-One cell runs on one chip, so no cell has an exchange between chips to
-leave out.
+reads their numbers at the cell's own size, one JSON line a fault and
+seed. The benchmark's runs plant none.
 """
 
 from __future__ import annotations
 
-import contextlib
+import argparse
+import json
 import os
 import sys
 
@@ -24,81 +22,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-import torch  # noqa: E402
-
-from audio_inpainting_torch.methods.neural import GANTrainer, UNetTrainer  # noqa: E402
-
-
-@contextlib.contextmanager
-def _patched(owner, name, make):
-    orig = getattr(owner, name)
-    setattr(owner, name, make(orig))
-    try:
-        yield
-    finally:
-        setattr(owner, name, orig)
-
-
-@contextlib.contextmanager
-def unchanged():
-    with _patched(torch.optim.Adam, "step", lambda orig: lambda self, closure=None: None):
-        yield
-
-
-def _halve(trainer) -> None:
-    half = torch.ones_like(trainer.vld)
-    half[..., half.shape[-1] // 2:] = 0.0
-    trainer.vld = trainer.vld * half
-    if isinstance(trainer, UNetTrainer):
-        trainer.inv = trainer.inv * half
-        trainer.denom = trainer.vld.sum(dim=(0, 2, 3)).clamp_min(1.0)
-    else:
-        trainer.rec_inv = trainer.rec_inv * half
-        trainer.rec_denom = trainer.vld.sum(dim=(0, 2, 3)).clamp_min(1.0)
-
-
-@contextlib.contextmanager
-def half_batch():
-    def init(orig):
-        def wrapped(self, *args, **kwargs):
-            orig(self, *args, **kwargs)
-            _halve(self)
-        return wrapped
-
-    with _patched(UNetTrainer, "__init__", init), _patched(GANTrainer, "__init__", init):
-        yield
-
-
-@contextlib.contextmanager
-def altered_answer():
-    def unet(orig):
-        return lambda self: tuple(x * 0.9 if i == 0 else x for i, x in enumerate(orig(self)))
-
-    with _patched(UNetTrainer, "restore", unet), \
-            _patched(GANTrainer, "restore", lambda orig: lambda self: orig(self) * 0.9):
-        yield
-
-
-FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "altered_answer": altered_answer}
+from benchmark import manifest  # noqa: E402
+from benchmark import run as harness  # noqa: E402
 
 
 def main(argv=None) -> int:
     """Read each fault's numbers at the cell's own size: ``--workload``,
-    ``--seeds``, ``--seconds`` (the window before the check)."""
-    import argparse
-    import json
-
-    from benchmark import run as harness
-
+    ``--seeds``, ``--seconds`` (the window before the check), ``--faults``
+    (every fault of the cell's kind by default)."""
     p = argparse.ArgumentParser(description="the check's numbers under each planted fault")
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--seconds", type=float, default=5.0)
-    p.add_argument("--faults", nargs="+", default=list(FAULTS))
+    p.add_argument("--faults", nargs="+")
     a = p.parse_args(argv)
-    for fault in a.faults:
+    faults = manifest.check(ROOT, manifest.cell(ROOT, a.workload).config).FAULTS
+    unknown = sorted(set(a.faults or ()) - set(faults))
+    if unknown:
+        p.error(f"the cell's check has no fault {', '.join(unknown)}; it has {', '.join(faults)}")
+    for fault in a.faults or list(faults):
         for seed in a.seeds:
-            with FAULTS[fault]():
+            with faults[fault]():
                 res = harness.run(a.workload, seed, a.seconds, False, "cuda")
             print(json.dumps({"workload": a.workload, "fault": fault, "seed": seed,
                               "correct": res["correct"], "checked": res["checked"]}), flush=True)

@@ -4,13 +4,15 @@ A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. The harness reads:
 
 - the configuration's ``file`` (``configs/<name>.json``), whose ``driver``
-  names ``drivers/<driver>.py``;
+  names ``drivers/<driver>.py`` and whose ``check`` names
+  ``checks/<check>.py``;
 - the traffic mix ``workloads/<traffic>.json``;
 - the limits of the cell's correctness check, ``limits/<cell>.json``;
 - each per-layer metric's reader, ``layer_metrics/<metric>.py``.
 
 Adding a configuration, a traffic mix, a cell or a per-layer metric adds
-files and entries; no file of the harness changes.
+files and entries, and so does a new kind of configuration (a driver, a
+check and its reference); no file of the harness changes.
 """
 
 from __future__ import annotations
@@ -85,6 +87,16 @@ def driver(root: str, config: dict):
     kind = config["driver"]
     return module(os.path.join(root, "benchmark", "drivers", f"{kind}.py"),
                   f"benchmark.drivers.{kind}")
+
+
+def check(root: str, config: dict):
+    """The check module that the configuration names (``check.py`` says
+    what it exports)."""
+    from . import checks  # noqa: F401  (the package its files import from)
+
+    kind = config["check"]
+    return module(os.path.join(root, "benchmark", "checks", f"{kind}.py"),
+                  f"benchmark.checks.{kind}")
 
 
 def reader(root: str, metric: str):

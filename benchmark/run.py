@@ -3,35 +3,46 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up makes the cell's requests from the seed (``gen.py``), starts the
-first one through the driver that the configuration names (the entry
-point's analysis and the port's trainer) and drives it through its first
-three epochs, which warms every shape the cell uses; it reads the
+A step is whatever the driver's ``job.epoch()`` runs: a training epoch of
+the port's trainer, or, for a kind that samples, one denoising
+evaluation; ``traffic["epochs"]`` counts the steps of a request. Set-up
+makes the cell's requests from the seed (``gen.py``), starts the first
+one through the driver that the configuration names (the entry point's
+analysis and the port's trainer or sampler) and drives it through its
+first three steps, which warms every shape the cell uses; it reads the
 readout once. The window then runs requests back to back for
-``--seconds``: epochs of the port's trainer until a request reaches the
-traffic's epochs, then its readout and synthesis to audio, then the next
-request. Requests repeat the set-up's ``distinct_requests`` in turn.
+``--seconds``: steps until a request reaches the traffic's epochs, then
+its readout and synthesis to audio, then the next request. Requests
+repeat the set-up's ``distinct_requests`` in turn.
 
 ``audio_rtf`` is the audio restored per second of the window: clip
 seconds x clip-epochs run / epochs per request / window seconds, the time
 of each request's analysis, trainer build, readout and synthesis
-included. ``setup_s`` runs from the process's start to the window's.
+included. ``audio_per_device_s``, in the cells that report it, is the
+same audio over the seconds the device was busy in the window (the union
+of its kernel, copy and memset intervals), read from one profiler
+session of device activity alone over the whole window, opened and
+closed on an idle device; the window's seconds end before the session
+stops. ``setup_s`` runs from the process's start to the window's.
 With ``--trace 1`` the window's first TRACE_SECONDS are traced with
 device activity alone and the next TRACE_SECONDS with the host's ops and
 ranges too (``trace.py``; half the window each where it is shorter), and
 the cell's per-layer metrics are read from them (``layer_metrics/``)
 instead.
 
-After the window (and outside ``setup_s``) the check (``check.py``) holds
-the first request's first three steps, one further step of the request in
-flight, and every readout (that request's too) to the plain reference;
-the numbers and their limits are printed as the last lines of standard
-error and under ``checked``, the last key of the result line.
+After the window (and outside ``setup_s``) the check that the
+configuration names (``checks/<kind>.py``; ``check.py`` says what each
+exports) holds the first request's first three steps, one further step
+of the request in flight, and every readout (that request's too) to the
+plain reference; the states it reads are whatever the driver's
+``job.states()`` gives for that kind. The numbers and their limits are
+printed as the last lines of standard error and under ``checked``, the
+last key of the result line.
 
 The last line of standard output is the result's JSON. No result is
 printed, and the exit code is 1, without as many GPUs as the cell asks
-for, when a traced slice lost a launch's device record, or when JAX or
-the JAX package was loaded.
+for, when a traced slice or the busy session lost a launch's device
+record, or when JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -74,6 +85,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _reading(kind: str, prof) -> trace.Reading:
+    """The stopped session ``prof``'s reading; raises where a launch in it
+    has no device record."""
+    t_read = time.perf_counter()
+    r = trace.Reading(trace.events(prof))
+    launches, lost = r.unrecorded()
+    print(f"traced {kind} slice: {len(r.events)} events, {launches} launches, "
+          f"{len(lost)} with no device record, read in "
+          f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
+    if lost:
+        at = ", ".join(f"{e.name} ({e.corr}) at {e.start - r.t0:.1f} us" for e in lost[:20])
+        last = max(e.start for e in r.events
+                   if e.kind == "runtime" and trace.LAUNCH_CALLS.search(e.name))
+        raise RuntimeError(f"{len(lost)} of {launches} launches traced in the {kind} slice "
+                           f"have no device record ({at}; the slice's last launch at "
+                           f"{last - r.t0:.1f} us): the slice reads short")
+    return r
+
+
 def run(workload: str, seed: int, seconds: float, traced: bool, device, root: str = ROOT,
         cell=None, t_start: float = T_START) -> dict:
     """One run of ``workload``; returns the result's dict (``checked``
@@ -83,9 +113,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, root: st
     device = torch.device(device)
     span = torch.profiler.record_function if traced else (lambda name: contextlib.nullcontext())
     driver = manifest.driver(root, cfg).Driver(cfg, traffic, device, span)
+    kind = manifest.check(root, cfg)
     epochs = traffic["epochs"]
 
-    # --- set-up: the requests, the first one's trainer and three epochs ----
+    # --- set-up: the requests, the first one's trainer and three steps -----
     marks = [("imports", time.perf_counter())]
     pool = [gen.make_request(traffic, cfg, seed, r) for r in range(traffic["distinct_requests"])]
     marks.append(("requests", time.perf_counter()))
@@ -110,23 +141,34 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, root: st
                                  in zip(marks, times, times[1:])), file=sys.stderr)
 
     # --- the window ----------------------------------------------------------
-    # traced slices: (kind, end in seconds from the window's start), each
-    # opened and closed on an idle device
-    first = min(TRACE_SECONDS, seconds / 2)
-    slices = [("device", first), ("ops", min(2 * first, seconds))] if traced else []
+    # profiler sessions: (kind, end in seconds from the window's start), each
+    # opened and closed on an idle device. Untraced, one busy session covers
+    # the whole window where the cell reports a rate over device time: a
+    # session stopped inside the window idles the device for the seconds the
+    # stop takes, and the steps after that idle run slower by a varying share
+    if traced:
+        first = min(TRACE_SECONDS, seconds / 2)
+        slices = [("device", first), ("ops", min(2 * first, seconds))]
+    elif any(m["source"] == "device_trace" for m in c.end_to_end):
+        slices = [("busy", seconds)]
+    else:
+        slices = []
     stopped = {}                         # kind -> (session, clip-epochs in it)
     answers, clip_epochs, attempted = [], 0, 1
-    prof = trace.session(ops=False) if traced else None
-    mark = 0
+    prof = trace.session(ops=False) if slices else None
+    mark, t_end = 0, None
     t0 = time.perf_counter()
     deadline = t0 + seconds
     while True:
         now = time.perf_counter()
         while prof is not None and (now >= t0 + slices[0][1] or now >= deadline):
             _sync(device)
+            if now >= deadline and t_end is None:
+                t_end = time.perf_counter()
             trace.close(prof)
             stopped[slices.pop(0)[0]] = (prof, clip_epochs - mark)
-            prof, mark = (trace.session(ops=True), clip_epochs) if slices else (None, 0)
+            prof, mark = ((trace.session(ops=slices[0][0] == "ops"), clip_epochs)
+                          if slices else (None, 0))
         if now >= deadline:
             break
         if done >= epochs:
@@ -140,7 +182,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, root: st
         done += 1
         clip_epochs += job.clips
     _sync(device)
-    window_s = time.perf_counter() - t0
+    window_s = (t_end or time.perf_counter()) - t0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
     # --- after the window: the request in flight, one more step and its readout
@@ -152,7 +194,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, root: st
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers, where = check.compare(cfg, traffic, start, steps, answers, device)
+    numbers, where = kind.compare(cfg, traffic, start, steps, answers, device)
     for name, at in where.items():
         print(f"{name} read its worst at {at}", file=sys.stderr)
     correct, checked = check.judge(numbers, c.limits)
@@ -164,27 +206,17 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, root: st
               "failed": 0 if correct else 1, "metrics": {}, "device": info}
     if not traced:
         clip_s = traffic["clip_seconds"]
-        values = {"audio_rtf": (clip_s * clip_epochs / epochs / window_s, "audio_s/s"),
+        audio_s = clip_s * clip_epochs / epochs
+        busy_s = sum(_reading(kind, prof).busy_s for kind, (prof, _) in stopped.items())
+        values = {"audio_rtf": (audio_s / window_s, "audio_s/s"),
+                  "audio_per_device_s": (audio_s / busy_s if busy_s > 0 else None, "audio_s/s"),
                   "setup_s": (setup_s, "s")}
         for m in c.end_to_end:
             v, unit = values[m["name"]]
-            result["metrics"][m["name"]] = {"value": v, "unit": unit}
+            if v is not None:            # none: no device, so no busy time (the CPU)
+                result["metrics"][m["name"]] = {"value": v, "unit": unit}
     else:
-        readings = {}
-        for kind, (prof, _) in stopped.items():
-            t_read = time.perf_counter()
-            r = readings[kind] = trace.Reading(trace.events(prof))
-            launches, lost = r.unrecorded()
-            print(f"traced {kind} slice: {len(r.events)} events, {launches} launches, "
-                  f"{len(lost)} with no device record, read in "
-                  f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
-            if lost:
-                at = ", ".join(f"{e.name} ({e.corr}) at {e.start - r.t0:.1f} us" for e in lost[:20])
-                last = max(e.start for e in r.events
-                           if e.kind == "runtime" and trace.LAUNCH_CALLS.search(e.name))
-                raise RuntimeError(f"{len(lost)} of {launches} launches traced in the {kind} slice "
-                                   f"have no device record ({at}; the slice's last launch at "
-                                   f"{last - r.t0:.1f} us): the slice reads short")
+        readings = {kind: _reading(kind, prof) for kind, (prof, _) in stopped.items()}
         n = int(round(traffic["clip_seconds"] * traffic["sample_rate"]))
         ctx = SimpleNamespace(
             config=cfg, traffic=traffic, cell=c.name, peak_bytes=peak,

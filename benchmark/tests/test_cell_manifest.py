@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from benchmark import check, manifest
+from benchmark import manifest
 
 from .conftest import ROOT
 
@@ -79,9 +79,10 @@ def test_files_found_by_name(cell):
     cfg = [e for e in M["configs"] if e["name"] == c.workload["config"]][0]
     assert cfg["file"].startswith("benchmark/configs/")
     assert os.path.isfile(os.path.join(ROOT, "benchmark", "drivers", f"{c.config['driver']}.py"))
+    assert os.path.isfile(os.path.join(ROOT, "benchmark", "checks", f"{c.config['check']}.py"))
     for m in c.per_layer:
         assert os.path.isfile(os.path.join(ROOT, "benchmark", "layer_metrics", f"{m['name']}.py"))
-    assert set(c.limits) <= set(check.NUMBERS) and c.limits
+    assert set(c.limits) <= set(manifest.check(ROOT, c.config).NUMBERS) and c.limits
     assert re.fullmatch(r"[\x20-\x7e]{1,200}", c.workload["why"])
     assert c.workload["chips"] in (1, 4)
 

@@ -106,9 +106,17 @@ def test_a_port_without_spans_reads_nothing(metric, monkeypatch):
 
 
 def test_the_new_metrics_are_reported_in_every_cell():
+    """Each cell reports both, under the plain name where it reports
+    ``audio_rtf`` and under ``<name>.gan`` where its rate is
+    ``audio_per_device_s``."""
     m = manifest.load(ROOT)
     cells = [w["name"] for w in m["workloads"]]
     for name in ("launches_per_epoch", "epoch_idle_pct"):
-        (entry,) = [p for p in m["per_layer"] if p["name"] == name]
-        assert entry["layer"] == "model step" and entry["source"] == "device_trace"
-        assert entry["moves"] == "audio_rtf" and entry["workloads"] == cells
+        covered = []
+        for suffix, moves in (("", "audio_rtf"), (".gan", "audio_per_device_s")):
+            (entry,) = [p for p in m["per_layer"] if p["name"] == name + suffix]
+            assert entry["layer"] == "model step" and entry["source"] == "device_trace"
+            (e2e,) = [e for e in m["end_to_end"] if e["name"] == moves]
+            assert entry["moves"] == moves and entry["workloads"] == e2e["workloads"]
+            covered += entry["workloads"]
+        assert sorted(covered) == sorted(cells)
