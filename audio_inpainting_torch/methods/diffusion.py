@@ -20,7 +20,9 @@ With a local riffusion checkpoint (diffusers layout; the weights are not
 in the repository), ``riffusion_restore_audio`` runs the reference's own
 pipeline instead: the SD port in models/sd/ (UNet2DCondition + VAE + CLIP
 text encoder + PLMS), 50 steps, strength 1.0, on a 512x512 canvas that
-``resize_image`` makes as PIL's bicubic resize does, bit for bit.
+``resize_image`` makes as PIL's bicubic resize does, bit for bit. Its
+glue is ``riffusion_analysis`` and ``riffusion_synthesis``, around the
+sampler.
 
 Random draws come from seeded CPU generators behind ``_draw_init``,
 ``_draw_train`` and ``_draw_sample``, so every device sees the same
@@ -41,6 +43,7 @@ from ..models.diffusion_unet import DiffusionUNet
 from ..ops.griffin_lim import griffin_lim
 from ..ops.stft import power_spectrogram
 from ..utils.checkpoint import load_params, save_params
+from ..utils.profiling import span
 from .neural import _adam
 
 # the 48-clip corpus prior, converted from the JAX package's Orbax
@@ -392,6 +395,68 @@ def diffusion_restore_audio(damaged: np.ndarray, sr: int,
     return _composite_time_domain(damaged, out, mask)
 
 
+@dataclass(frozen=True)
+class RiffusionAnalysis:
+    """What the Riffusion path derives from a damaged clip before SD
+    (``riffusion_analysis``): the clip, its log-spectrogram image (H, W)
+    uint8 with the image's dB range, the damage mask (255 = damaged), and
+    both resized onto the square SD canvas, the image as RGB."""
+
+    damaged: np.ndarray
+    image: np.ndarray
+    smin: float
+    smax: float
+    mask: np.ndarray
+    canvas: np.ndarray
+    canvas_mask: np.ndarray
+
+
+def riffusion_analysis(damaged: np.ndarray, image_size: int = 512,
+                       device=None) -> RiffusionAnalysis:
+    """wav -> log-spec image and mask (the reference's codec, :22-55) ->
+    RGB image_size^2 canvas and its mask (PIL's bicubic resize,
+    :58-59). The spectrogram runs on ``device`` (cuda by default); the
+    span ``riffusion.analysis`` holds it."""
+    dev = resolve_device(device)
+    with span("riffusion.analysis", image_size=image_size):
+        damaged = np.asarray(damaged, np.float32)
+        logspec = wav_to_logspec(torch.tensor(damaged, device=dev)).cpu().numpy()
+        img, smin, smax = logspec_to_image(logspec)
+        mask = mask_from_image(img)
+        size = (image_size, image_size)
+        return RiffusionAnalysis(damaged, img, smin, smax, mask,
+                                 resize_image(np.repeat(img[:, :, None], 3, axis=2), size),
+                                 resize_image(mask, size))
+
+
+def riffusion_synthesis(a: RiffusionAnalysis, inpainted_rgb_u8: np.ndarray, key: int = 0,
+                        composite: bool = True, fill_energy_ratio: float | None = 0.12,
+                        device=None) -> np.ndarray:
+    """The inpainted canvas back to audio: resized to the image's size,
+    grey, the known region kept exact, the linear spectrogram through
+    Griffin-Lim (32 iterations, phase seeded by ``key``, on ``device``),
+    the fill's energy calibrated, and with
+    ``composite`` only the damaged span replaced (see
+    ``diffusion_restore_audio``). The span ``riffusion.synthesis`` holds
+    it. Returns float32 numpy."""
+    dev = resolve_device(device)
+    with span("riffusion.synthesis"):
+        damaged, img, mask = a.damaged, a.image, a.mask
+        h, w = img.shape
+        gray = np.asarray(resize_image(inpainted_rgb_u8, (w, h)), np.float32).mean(axis=2)
+        inpainted = np.rint(np.clip(gray, 0, 255)).astype(np.uint8)
+        # the known region is trustworthy in the source image; keep it exact
+        inpainted = np.where(mask == 255, inpainted, img)
+        linear = image_to_linear_spec(inpainted, a.smin, a.smax)
+        out = griffin_lim(linear, n_fft=2048, hop=512, n_iter=32, length=len(damaged),
+                          power=1.0, seed=key, device=dev).cpu().numpy()
+        if fill_energy_ratio is not None:
+            out = _calibrate_fill_energy(damaged, out, mask, fill_energy_ratio)
+        if not composite:
+            return out
+        return _composite_time_domain(damaged, out, mask)
+
+
 def riffusion_restore_audio(damaged: np.ndarray, sr: int,
                             checkpoint_root: str | None = None,
                             prompt: str | None = None, steps: int = 50,
@@ -401,17 +466,21 @@ def riffusion_restore_audio(damaged: np.ndarray, sr: int,
                             device=None) -> np.ndarray:
     """Reference-exact Riffusion inpainting from a LOCAL checkpoint.
 
-    wav -> log-spec image -> RGB image_size^2 -> SD masked-latent inpaint
-    (models/sd/pipeline.py; prompt, steps and strength as in
-    main_diffusion_gap.py:58-67) -> resize back -> Griffin-Lim. Raises
-    FileNotFoundError when neither ``checkpoint_root`` nor ``bundle`` is
-    given or the checkpoint is absent.
+    ``riffusion_analysis`` (wav -> log-spec image -> RGB image_size^2),
+    the SD masked-latent inpaint (models/sd/pipeline.py; prompt, steps and
+    strength as in main_diffusion_gap.py:58-67), ``riffusion_synthesis``
+    (resize back -> Griffin-Lim), in turn. Raises FileNotFoundError when
+    neither ``checkpoint_root`` nor ``bundle`` is given or the checkpoint
+    is absent.
 
     bundle: a ``load_riffusion`` dict, loaded once and reused per clip; it
-    runs where its modules are. image_size: the SD canvas (512 is the
-    reference's resize, main_diffusion_gap.py:58-59; tests shrink it). The
-    codec, the checkpoint load and Griffin-Lim run on ``device`` (cuda by
-    default). Returns float32 numpy.
+    runs where its modules are. A bundle may hold a precomputed prompt
+    encoding under ``context`` ((2, 77, 768), [uncond; cond]) in place of
+    its tokenizer and text encoder; ``prompt`` is then not read.
+    image_size: the SD canvas (512 is the reference's resize,
+    main_diffusion_gap.py:58-59; tests shrink it). The codec, the
+    checkpoint load and Griffin-Lim run on ``device`` (cuda by default).
+    Returns float32 numpy.
     """
     from ..models.sd import PROMPT, InpaintConfig, load_riffusion, riffusion_inpaint_image
 
@@ -421,26 +490,10 @@ def riffusion_restore_audio(damaged: np.ndarray, sr: int,
             raise FileNotFoundError(
                 "riffusion_restore_audio needs checkpoint_root or bundle")
         bundle = load_riffusion(checkpoint_root, device=dev)
-    damaged = np.asarray(damaged, np.float32)
-    logspec = wav_to_logspec(torch.tensor(damaged, device=dev)).cpu().numpy()
-    img, smin, smax = logspec_to_image(logspec)
-    mask = mask_from_image(img)
-    h, w = img.shape
-    rgb = resize_image(np.repeat(img[:, :, None], 3, axis=2), (image_size, image_size))
-    out = riffusion_inpaint_image(bundle, rgb, resize_image(mask, (image_size, image_size)),
-                                  prompt or PROMPT, InpaintConfig(steps=steps), key=key)
-    gray = np.asarray(resize_image(out, (w, h)), np.float32).mean(axis=2)
-    inpainted = np.rint(np.clip(gray, 0, 255)).astype(np.uint8)
-    # the known region is trustworthy in the source image; keep it exact
-    inpainted = np.where(mask == 255, inpainted, img)
-    linear = image_to_linear_spec(inpainted, smin, smax)
-    out = griffin_lim(linear, n_fft=2048, hop=512, n_iter=32, length=len(damaged),
-                      power=1.0, seed=key, device=dev).cpu().numpy()
-    if fill_energy_ratio is not None:
-        out = _calibrate_fill_energy(damaged, out, mask, fill_energy_ratio)
-    if not composite:
-        return out
-    return _composite_time_domain(damaged, out, mask)
+    a = riffusion_analysis(damaged, image_size, dev)
+    out = riffusion_inpaint_image(bundle, a.canvas, a.canvas_mask, prompt or PROMPT,
+                                  InpaintConfig(steps=steps), key=key)
+    return riffusion_synthesis(a, out, key, composite, fill_energy_ratio, dev)
 
 
 def _calibrate_fill_energy(damaged: np.ndarray, out: np.ndarray,

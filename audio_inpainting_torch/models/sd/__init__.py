@@ -11,7 +11,7 @@ across through ``sd_flax_to_state_dict``.
 from ...convert import flax_to_torch_key, sd_flax_to_state_dict
 from .loader import (load_module, load_riffusion, load_torch_weights,
                      match_checkpoint, read_safetensors)
-from .pipeline import (PROMPT, InpaintConfig, encode_prompt,
+from .pipeline import (PROMPT, InpaintConfig, InpaintSampler, encode_prompt,
                        riffusion_inpaint_image)
 from .scheduler import (SchedulerConfig, add_noise, alphas_cumprod,
                         ddim_step, ddim_timesteps, plms_init, plms_step,
@@ -20,7 +20,7 @@ from .unet2d import UNet2DCondition, UNetConfig
 from .vae import AutoencoderKL, VAEConfig, sample_latent
 
 __all__ = [
-    "AutoencoderKL", "InpaintConfig", "PROMPT", "SchedulerConfig",
+    "AutoencoderKL", "InpaintConfig", "InpaintSampler", "PROMPT", "SchedulerConfig",
     "UNet2DCondition", "UNetConfig", "VAEConfig", "add_noise",
     "alphas_cumprod", "ddim_step", "ddim_timesteps", "encode_prompt",
     "flax_to_torch_key", "load_module", "load_riffusion",

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
+
 
 @dataclass(frozen=True)
 class UNetConfig:
@@ -105,17 +107,20 @@ class ResnetBlock2D(nn.Module):
 def attention(q, k, v, heads: int):
     """softmax(q k^T / sqrt(d)) v over ``heads`` heads: q (B, Lq, H*d), k
     and v (B, Lk, H*d) -> (B, Lq, H*d). The scores and the softmax are
-    float32."""
+    float32. Each call is the span ``sd.attention``, with its shape as
+    attributes."""
     b, lq, inner = q.shape
     d = inner // heads
 
     def split(x):
         return x.reshape(b, x.shape[1], heads, d).transpose(1, 2)
 
-    q, k, v = split(q), split(k), split(v)
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
-    probs = scores.to(torch.float32).softmax(dim=-1).to(q.dtype)
-    return torch.matmul(probs, v).transpose(1, 2).reshape(b, lq, inner)
+    with span("sd.attention", batch=b, heads=heads, q_tokens=lq, k_tokens=k.shape[1],
+              head_dim=d):
+        q, k, v = split(q), split(k), split(v)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+        probs = scores.to(torch.float32).softmax(dim=-1).to(q.dtype)
+        return torch.matmul(probs, v).transpose(1, 2).reshape(b, lq, inner)
 
 
 class Attention(nn.Module):

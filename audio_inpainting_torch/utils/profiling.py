@@ -93,9 +93,11 @@ class Timer:
 # ------------------------------------------------------------------ spans --
 #
 # The port opens a span at each boundary where a layer's work happens: an
-# entry point's request, a trainer's build, epoch and readout, a transform.
-# No span goes per op, per launch or inside an inner loop. When no session
-# is active a span costs one check of torch's profiler state (0.45 us for
+# entry point's request, a trainer's build, epoch and readout, a transform,
+# a denoising evaluation and the attention calls inside it (32 an SD-v1
+# evaluation, which the attention's roofline reads). No span goes per op,
+# per launch or inside an inner loop. When no session is active a span
+# costs one check of torch's profiler state (0.45 us for
 # the whole ``with`` on an H100's host); inside one, about 18 us (a bare
 # ``record_function`` range, 10 us).
 # Inside a session it is recorded in a bounded buffer of this process and
@@ -112,11 +114,14 @@ class Timer:
 # made inside a span starts inside its stamps, the nearest 24-26 us from
 # an edge (tests/test_torch_spans_cuda.py).
 
-# the spans the port opens, by layer: model step (the trainers), entry,
+# the spans the port opens, by layer: model step (the trainers, the SD
+# sampler's VAE calls and evaluations), kernels (SD's attention), entry,
 # ops. tools/trace_breakdown.py reads the record_function mirrors of these.
 PORT_SPANS = ("unet.build", "unet.epoch", "unet.readout",
               "gan.build", "gan.epoch", "gan.readout", "gan.run",
-              "api.restore", "serve.batch", "ops.stft", "ops.istft")
+              "sd.encode", "sd.step", "sd.attention", "sd.decode",
+              "api.restore", "serve.batch", "riffusion.analysis", "riffusion.synthesis",
+              "ops.stft", "ops.istft")
 SPAN_CAPACITY = 65_536
 
 
