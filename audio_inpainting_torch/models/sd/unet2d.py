@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import sd_conv3x3
 from ...utils.profiling import span
 
 
@@ -85,14 +86,52 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 
+def routes(c_in: int, hw: int, c_out: int) -> bool:
+    """Whether a ``Conv3x3`` of c_in -> c_out channels over hw = H * W
+    pixels takes the hand-written kernel on the card. From the kernel's
+    time against cuDNN's at each such shape of the UNet at the CFG batch
+    (PERF.md, the kernels' table): 1.2-3.3x faster at every c_in and
+    c_out where H * W <= 32 * 32, and level at 64 * 64, where cuDNN's
+    fp32 GEMMs already fill the card. So H * W alone decides."""
+    return hw <= 32 * 32
+
+
+def takes_kernel(shape, c_out: int, *, cuda: bool, fp32: bool, needs_grad: bool) -> bool:
+    """Whether ``Conv3x3`` runs an input of ``shape`` (N, C, H, W) by the
+    kernel (ops/sd_conv3x3.py): a CUDA fp32 tensor, no autograd graph to
+    build, a shape that ``routes`` takes and the kernel tiles."""
+    if not cuda or not fp32 or needs_grad or len(shape) != 4:
+        return False
+    n, c, h, w = shape
+    return routes(c, h * w, c_out) and sd_conv3x3.takes(n, c, h, w)
+
+
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(cin, cout, 3, padding=1)`` (the same parameters and
+    keys), whose forward runs the hand-written kernel where
+    ``takes_kernel`` says so, and F.conv2d otherwise: on the CPU always."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, padding=1)
+
+    def forward(self, x):
+        grad = torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                            or self.bias.requires_grad)
+        if takes_kernel(x.shape, self.out_channels, cuda=x.is_cuda,
+                        fp32=x.dtype == torch.float32 and self.weight.dtype == torch.float32,
+                        needs_grad=grad):
+            return sd_conv3x3.sd_conv3x3(x, self.weight, self.bias)
+        return super().forward(x)
+
+
 class ResnetBlock2D(nn.Module):
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int = 32):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, cin, eps=1e-5)
-        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
+        self.conv1 = Conv3x3(cin, cout)
         self.time_emb_proj = nn.Linear(temb_dim, cout)
         self.norm2 = nn.GroupNorm(groups, cout, eps=1e-5)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.conv2 = Conv3x3(cout, cout)
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, temb):
@@ -207,7 +246,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv = Conv3x3(ch, ch)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -307,3 +346,25 @@ class UNet2DCondition(nn.Module):
                 h = sampler(h)
 
         return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
+def conv3x3_calls(cfg: UNetConfig, batch: int, height: int, width: int) -> dict:
+    """{((N, C, H, W), C_out): calls} of the ``Conv3x3`` convolutions in one
+    forward of ``UNet2DCondition(cfg)`` on (batch, in_channels, height,
+    width) latents, by a forward on the meta device."""
+    with torch.device("meta"):
+        model = UNet2DCondition(cfg)
+    calls: dict = {}
+
+    def count(mod, args, out):
+        key = (tuple(args[0].shape), mod.out_channels)
+        calls[key] = calls.get(key, 0) + 1
+
+    for mod in model.modules():
+        if isinstance(mod, Conv3x3):
+            mod.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.empty((batch, cfg.in_channels, height, width), device="meta"),
+              torch.empty(batch, device="meta"),
+              torch.empty((batch, 1, cfg.cross_attention_dim), device="meta"))
+    return calls

@@ -6,6 +6,7 @@
     python3 chip_smoke.py prior      # phase prior alone, no result lines
     python3 chip_smoke.py tools      # phase tools alone, no result lines
     python3 chip_smoke.py bn_leaky   # phase bn_leaky alone, no result lines
+    python3 chip_smoke.py riffusion  # phase riffusion alone, no result lines
     python3 chip_smoke.py gan_epoch  # the GAN epoch's host and device times
                                      # alone; runs on a tree without the
                                      # BatchNorm + LeakyReLU kernels too
@@ -42,7 +43,10 @@ at full width (phase ``riffusion``: seeded random weights written as
 safetensors and loaded by ``load_riffusion``, held to the SD-v1 key
 manifest, ``riffusion_restore_audio`` on Part 2's clip at 512^2 with 50
 PLMS steps and CFG 7.5, the UNet, VAE and loop timed beside their FLOP
-bounds, GPU against CPU) and the multi-device layer (phase ``multi``: one
+bounds, GPU against CPU; the UNet's 3x3 resnet convs by shape: the
+hand-written kernel where the model routes them, held against float64
+and timed beside its bound, the plain version and cuDNN) and the
+multi-device layer (phase ``multi``: one
 rank on NCCL, two and four ranks sharing the card over gloo, spawned by
 ``parallel.launch``; the shared U-Net at (4, 516, 1728) and, on a 2 x 2
 mesh, on two 60 s spectrograms; the per-clip U-Nets and GANs, the 60 s
@@ -169,6 +173,11 @@ SD_FORWARD_RTOL = 1e-4         # GPU vs CPU, of the output's peak
 SD_LATENT_RTOL = 1e-4          # the tiny inpaint's latents, of their peak
 SD_VS_CPU_CANVAS = 256         # the VAE's GPU-vs-CPU size
 SD_PROFILE_STEPS = 10          # the profiled loop: 11 evaluations
+# the 3x3 kernel against float64, of the sum of |terms| at each output:
+# fp32 chains of at most a few thousand FMAs a slice, then the slices,
+# round by about sqrt(length) x 2^-24 ~ 3e-6 of it; an indexing fault
+# reads O(1)
+SD_CONV_RTOL = 1e-5
 # phase prior (the corpus-prior trainer)
 PRIOR_CLIPS = 4                # 6 full-size images with the corrupted variants
 PRIOR_STEPS = 500
@@ -1001,6 +1010,80 @@ def timed_bound(fn, model, call_bytes: float, calls: int = 3) -> dict:
     return out
 
 
+def sd_conv_table(dev, unet_cfg) -> dict:
+    """The UNet's 3x3 resnet convs at the CFG batch (``conv3x3_calls``), by
+    shape, on seeded inputs: cuDNN's F.conv2d (``library_ms``; the port
+    calls it only where the module does not route the shape) and, where
+    the module routes the shape to the hand-written kernel, the kernel
+    held against F.conv2d in float64 (SD_CONV_RTOL), called twice for the
+    same bits, timed beside its bound and the plain version. Returns the
+    rows, the routed shapes' ms an evaluation and the kernel table's row."""
+    import torch.nn.functional as F
+
+    from audio_inpainting_torch.models.sd import unet2d
+    from audio_inpainting_torch.ops import sd_conv3x3 as kernel
+
+    lat = SD_CANVAS // 8
+    rows, per_eval = [], {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                          "bound_ms": 0.0, "library_ms_unrouted": 0.0}
+    shapes = unet2d.conv3x3_calls(unet_cfg, 2, lat, lat)
+    for i, ((shape, c_out), calls) in enumerate(shapes.items()):
+        n, c, h, w = shape
+        g = torch.Generator().manual_seed(SD_SEED + 10 + i)
+        x = torch.randn(shape, generator=g).to(dev)
+        weight = (torch.randn((c_out, c, 3, 3), generator=g) / float(np.sqrt(9 * c))).to(dev)
+        bias = (0.02 * torch.randn(c_out, generator=g)).to(dev)
+        routed = unet2d.takes_kernel(shape, c_out, cuda=True, fp32=True, needs_grad=False)
+        row = {"shape": list(shape), "c_out": c_out, "calls_an_evaluation": calls,
+               "routed": routed,
+               **flop_bound(2.0 * n * h * w * c_out * c * 9,
+                            4.0 * (x.numel() + weight.numel() + bias.numel() + n * c_out * h * w)),
+               "library_ms": cuda_ms(lambda: F.conv2d(x, weight, bias, padding=1), calls=5)}
+        if routed:
+            _, _, slices, per = kernel._plan(n, c, h, w, c_out, x.get_device())
+            before = kernel.LAUNCHES
+            y = kernel.sd_conv3x3(x, weight, bias)
+            again = kernel.sd_conv3x3(x, weight, bias)
+            torch.cuda.synchronize()
+            launches = (kernel.LAUNCHES - before) // 2
+            x64, w64, b64 = x.double(), weight.double(), bias.double()
+            want = F.conv2d(x64, w64, b64, padding=1)
+            terms = F.conv2d(x64.abs(), w64.abs(), b64.abs(), padding=1)
+            plain = kernel.sd_conv3x3_ref(x, weight, bias, slices, per)
+            err = float(((y.double() - want).abs() / terms).max()) / SD_CONV_RTOL
+            plain_err = float(((plain.double() - want).abs() / terms).max()) / SD_CONV_RTOL
+            if not (err <= 1.0 and plain_err <= 1.0 and torch.equal(y, again) and launches == 2):
+                raise AssertionError(f"sd_conv3x3 at {shape} -> {c_out}: error over tolerance "
+                                     f"{err}, plain {plain_err}, same bits "
+                                     f"{torch.equal(y, again)}, launches a call {launches}")
+            row.update(slices=slices, channels_a_slice=per, err_over_tol=err,
+                       plain_err_over_tol=plain_err,
+                       ms=cuda_ms(lambda: kernel.sd_conv3x3(x, weight, bias), calls=5),
+                       plain_ms=cuda_ms(lambda: kernel.sd_conv3x3_ref(x, weight, bias, slices,
+                                                                      per), calls=5))
+            row["tflops"] = row["gflop"] / row["ms"]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                per_eval[k] += calls * row[k]
+            per_eval["calls"] += calls
+        else:
+            per_eval["library_ms_unrouted"] += calls * row["library_ms"]
+        rows.append(row)
+        del x, weight, bias
+    routed_rows = [r for r in rows if r["routed"]]
+    return {"rows": rows, "routed_an_evaluation": per_eval,
+            "tolerance": f"kernel and plain version against F.conv2d in float64: "
+                         f"{SD_CONV_RTOL:g} of the sum of |terms|",
+            "kernel_row": {
+                "name": "sd_conv3x3", "route": "cuda",
+                "source": "audio_inpainting_torch/csrc/sd_conv3x3.cu", "replaces": None,
+                "launches": 2 * per_eval["calls"], "bound_by": "operations",
+                "max_err_over_tol": max(r["err_over_tol"] for r in routed_rows),
+                **{k: per_eval[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "shapes": [{k: r[k] for k in ("shape", "c_out", "calls_an_evaluation", "slices",
+                                              "ms", "plain_ms", "library_ms", "bound_ms",
+                                              "tflops")} for r in routed_rows]}}
+
+
 def phase_riffusion(dev, tmp: Path):
     """Stable Diffusion v1 / Riffusion at full width: seeded random weights
     written in the diffusers layout and loaded by ``load_riffusion``; their
@@ -1008,14 +1091,15 @@ def phase_riffusion(dev, tmp: Path):
     ``riffusion_restore_audio`` on Part 2's clip (512^2 canvas, 50 PLMS
     steps, CFG 7.5, float32), cold and warm, held to the composite
     contract; the UNet's CFG forward, the VAE and the 51-evaluation loop
-    timed beside their FLOP bounds and profiled; GPU against CPU: one
-    full-width UNet forward, the VAE at 256^2, and the tiny inpaint with
-    the same draws."""
+    timed beside their FLOP bounds and profiled; the 3x3 resnet convs by
+    shape (sd_conv_table); GPU against CPU: one full-width UNet forward,
+    the VAE at 256^2, and the tiny inpaint with the same draws. Returns
+    the AR kernel's launches and the 3x3 kernel's table row."""
     from audio_inpainting_torch.corrupt import center_gap_bounds, synth_music_clip
     from audio_inpainting_torch.methods.diffusion import riffusion_restore_audio
     from audio_inpainting_torch.models import sd
     from audio_inpainting_torch.models.sd import pipeline
-    from audio_inpainting_torch.ops import ar_scan
+    from audio_inpainting_torch.ops import ar_scan, sd_conv3x3
 
     # weights: written as safetensors, loaded through the entry point
     t0 = time.perf_counter()
@@ -1061,11 +1145,11 @@ def phase_riffusion(dev, tmp: Path):
     restore()
     cold_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    ar_scan.LAUNCHES = 0
+    ar_scan.LAUNCHES = sd_conv3x3.LAUNCHES = 0
     t0 = time.perf_counter()
     out = restore()
     warm_s = time.perf_counter() - t0
-    launches = ar_scan.LAUNCHES
+    launches, conv_launches = ar_scan.LAUNCHES, sd_conv3x3.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if out.shape != damaged.shape or out.dtype != np.float32 or not np.isfinite(out).all():
         raise AssertionError("riffusion: output has the wrong shape or type, or is not finite")
@@ -1115,6 +1199,12 @@ def phase_riffusion(dev, tmp: Path):
     loop = {"evaluations": n_evals, "wall_s": loop_s, "ms_per_evaluation": loop_s * 1e3 / n_evals,
             "profiled_evaluations": SD_PROFILE_STEPS + 1, "profile": prof,
             "bound_ms": layers["unet_cfg_forward"]["bound_ms"] * n_evals}
+    convs = sd_conv_table(dev, bundle["unet_cfg"])
+    conv_row = convs.pop("kernel_row")
+    if conv_launches != conv_row["launches"] * n_evals:
+        raise AssertionError(f"riffusion: the restore launched the 3x3 kernel {conv_launches} "
+                             f"times, not {conv_row['launches']} a CFG evaluation")
+    conv_row["launches_by_path"] = {"riffusion": conv_launches}
 
     vs_cpu = sd_vs_cpu(unet, vae, ctx, lat, g, dev)
     del bundle, unet, vae
@@ -1126,9 +1216,9 @@ def phase_riffusion(dev, tmp: Path):
                       "canvas": SD_CANVAS, "guidance_scale": cfg.guidance_scale,
                       "cold_s": cold_s, "warm_s": warm_s, "peak_memory_gb": peak_gb,
                       "outside_max_abs_err": outside_err, "hole_peak": hole_peak,
-                      "kernel_launches": launches},
-          "layers": layers, "loop": loop, "gpu_vs_cpu": vs_cpu})
-    return launches
+                      "kernel_launches": launches, "sd_conv3x3_launches": conv_launches},
+          "layers": layers, "loop": loop, "conv3x3": convs, "gpu_vs_cpu": vs_cpu})
+    return launches, conv_row
 
 
 def sd_vs_cpu(unet, vae, ctx, lat: int, g: torch.Generator, dev) -> dict:
@@ -3124,10 +3214,12 @@ def main(argv: list[str]) -> int:
         emit({"phase": "gan_epoch", "gpu": gpu_name_and_power(), **res})
         return 0
     phase_env(dev)
-    if argv in (["multi"], ["prior"], ["tools"], ["bn_leaky"]):   # one phase alone
+    if argv in (["multi"], ["prior"], ["tools"], ["bn_leaky"], ["riffusion"]):  # one phase
         with tempfile.TemporaryDirectory() as tmp:
             if argv == ["bn_leaky"]:
                 phase_bn_leaky(dev)
+            elif argv == ["riffusion"]:
+                phase_riffusion(dev, Path(tmp))
             elif argv == ["multi"]:
                 phase_multi(dev, Path(tmp), engine_clip(Path(tmp)))
             elif argv == ["tools"]:
@@ -3158,7 +3250,7 @@ def main(argv: list[str]) -> int:
         by_path.update(tools_launches)
         serve_launches, serve_rows = phase_serve(dev, Path(tmp), clip)
         by_path.update(serve_launches)
-        by_path["riffusion"] = phase_riffusion(dev, Path(tmp))
+        by_path["riffusion"], conv_row = phase_riffusion(dev, Path(tmp))
         multi_launches, multi_rows, multi_bn = phase_multi(dev, Path(tmp), clip)
         by_path.update(multi_launches)
     fitted = ([r for r in rows if "ms" in r] + [part1_row] + windowed_rows + stream_rows
@@ -3179,7 +3271,7 @@ def main(argv: list[str]) -> int:
                                          "chunked_ms", "max_abs_err",
                                          "agreement_snr_db")}}
                    for r in fitted]},
-        {**bn_row, "launches_by_path": {**BN_LAUNCHES, "multi": multi_bn}}]})
+        {**bn_row, "launches_by_path": {**BN_LAUNCHES, "multi": multi_bn}}, conv_row]})
     print(gpu_name_and_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
